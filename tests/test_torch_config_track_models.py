@@ -51,7 +51,7 @@ def test_track_tables_and_curvature(name):
     for f in ("k_coeffs", "x_coeffs", "y_coeffs", "obstacles"):
         np.testing.assert_array_equal(getattr(tt.data, f).numpy(), np.asarray(getattr(jt.data, f)))
     # the converter carries JAX's tables across unchanged
-    moved = convert.track_data({f: np.asarray(v) for f, v in vars(jt.data).items()})
+    moved = convert.track_data({f: np.asarray(v) for f, v in vars(jt.data).items()}, "cpu")
     np.testing.assert_array_equal(moved.k_coeffs.numpy(), tt.data.k_coeffs.numpy())
     # negative s and successive laps exercise the modulo sign in _locate
     s = np.linspace(-1.5 * jt.length, 2.5 * jt.length, 4001)

@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests import nothing of JAX, so they run where the card is, e.g.
 
@@ -14,7 +14,12 @@ Tolerances: with rho = 1 the Riccati step is well conditioned, and at H=8
 the plain version in float32 stays within ~1e-7 of float64 (costs: ~1e-6
 relative), so kernel and plain version, which round differently, agree to
 1e-4.  (At small rho the float32 gains themselves are noisy; chip_smoke.py
-checks that regime against float64.)
+checks that regime against float64.)  The whole solve (kernel 3) is held to
+the same tolerance in that regime: one outer and one inner iteration at
+rho0 = 1, where both versions must also pick the same step on every lane.
+Lanes 0 and 1 start beyond the state guard and from a NaN: there only the
+flags and counts are compared.  Its early exit and alpha=1 fast path must
+change no output bit.
 """
 
 import numpy as np
@@ -31,21 +36,37 @@ from vehicle_control_tpu_torch.parallel.batch import (
 )
 from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig, rollout
 from vehicle_control_tpu_torch.solvers.backward_kernel_fm import BackwardKernelFM, backward_plain
+from vehicle_control_tpu_torch.solvers.derivs_kernel_fm import DerivsKernelFM, derivs_plain
 from vehicle_control_tpu_torch.solvers.rollout_kernel_fm import (
     LinesearchKernelFM,
     linesearch_costs_plain,
 )
+from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM, solve_plain
 from vehicle_control_tpu_torch.utils.config import load_config, project_root
 
 H, B = 8, 64
 ALPHAS = [1.0, 0.25, 0.01]
+BUDGET = dict(n_outer=2, n_inner=3, n_polish=1, n_alpha=6, mu0=300.0)
+WELL = ALILQRConfig(n_outer=1, n_inner=1, n_polish=0, n_alpha=6, mu0=300.0, rho0=1.0)
+
+
+def _lane_err(a, b):
+    """Per lane: max |a - b| / (1 + max |b| of the lane)."""
+    scale = 1.0 + b.abs().reshape(b.shape[0], -1).amax(-1)
+    return (a - b).abs().reshape(b.shape[0], -1).amax(-1) / scale
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def _config(rel):
     return load_config(f"{project_root()}/configs/{rel}")
 
 
-def _problem(device=None, dtype=torch.float64):
+def _problem(device="cpu", dtype=torch.float64):
     cfg = dict(_config("controllers/singletrack.yaml"), obstacles=False, horizon=H)
     track = Track(_config("environment/ippodromo.yaml"))
     return track, problems.build_cascaded_problem(
@@ -110,20 +131,64 @@ def test_backward_kernel_matches_plain(inputs):
 
 
 @pytest.mark.cuda
+def test_derivs_kernel_matches_plain(inputs):
+    fam, X, U, lam, mu, _, curv, ds = inputs[:8]
+    dk = DerivsKernelFM(fam)
+    got = dk(X, U, lam, mu, curv, ds)
+    ref = derivs_plain(fam, X, U, lam, mu, curv, ds)
+    assert dk.launches == 1
+    for name, a, b in zip(("g", "Hw", "J"), got, ref):
+        assert a.shape == b.shape, name
+        assert _lane_err(a, b).max().item() < 1e-4, name
+
+
+@pytest.mark.cuda
+def test_solve_kernel_matches_plain(inputs):
+    fam, _, U, lam, _, _, curv, ds, z0 = inputs[:9]
+    sk = SolveKernelFM(fam, WELL)
+    got = sk(z0, U, lam, curv, ds, trace=True)
+    ref = solve_plain(fam, WELL, z0, U, lam, curv, ds, trace=True)
+    assert sk.launches == 1
+    torch.testing.assert_close(got[5], ref[5])  # converged
+    torch.testing.assert_close(got[6], ref[6])  # iterations
+    torch.testing.assert_close(got[7]["first_alpha"], ref[7]["first_alpha"], rtol=0, atol=0)
+    for name, a, b in zip(("X", "U", "lam"), got[:3], ref[:3]):
+        assert _lane_err(a[2:], b[2:]).max().item() < 1e-4, name
+    cost, cost_ref = got[3][2:], ref[3][2:]
+    assert ((cost - cost_ref).abs() / cost_ref.abs().clamp_min(1.0)).max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_solve_kernel_exits_change_no_bit(inputs):
+    fam, _, U, lam, _, _, curv, ds, z0 = inputs[:9]
+    outs = []
+    for early_exit, fast in ((True, False), (False, False), (True, True), (False, True)):
+        cfg = ALILQRConfig(**BUDGET, early_exit=early_exit, ls_fast_path=fast)
+        outs.append(SolveKernelFM(fam, cfg)(z0, U, lam, curv, ds))
+    for out in outs[1:]:
+        assert all(_same_bits(a, b) for a, b in zip(out, outs[0]))
+
+
+@pytest.mark.cuda
 def test_closed_loop_step_launches_both_kernels(cuda):
-    """One f32 closed-loop step on the card goes through both kernels."""
+    """One f32 closed-loop step on the card goes through the kernels its
+    config picks: kernels 1 + 2 by default, kernels 1 + 4 on the
+    derivatives route, kernel 3 alone on the whole-solve route."""
     track, prob = _problem(cuda, torch.float32)
-    budget = ALILQRConfig(n_outer=2, n_inner=3, n_polish=1, n_alpha=6, mu0=300.0)
     transition, _ = dc.make_transitions(
         dc.DynamicCarParams.from_config(_config("models/dynamic_car.yaml"))
     )
-    step = make_batched_racing_step(
-        prob, budget, transition, track.data.to(cuda, torch.float32), 0.05, 4
-    )
+    per_solve = BUDGET["n_outer"] * BUDGET["n_inner"] + BUDGET["n_polish"]
     states = torch.as_tensor(initial_states(track.length, 256, np.random.default_rng(0)),
                              dtype=torch.float32, device=cuda)
-    carry, nxt, action, info = step(aligned_carry(prob, states), states)
-    per_solve = budget.n_outer * budget.n_inner + budget.n_polish
-    assert [k.launches for k in step.kernels] == [per_solve, per_solve]
-    assert torch.isfinite(nxt).all() and torch.isfinite(action).all()
-    assert carry.X_pred.shape == (256, H, 10) and info.converged.shape == (256,)
+    routes = (({}, [per_solve, per_solve]), (dict(use_derivs_kernel=True), [per_solve, per_solve]),
+              (dict(use_solve_kernel=True), [1]))
+    for flags, launches in routes:
+        step = make_batched_racing_step(
+            prob, ALILQRConfig(**BUDGET, **flags), transition,
+            track.data.to(cuda, torch.float32), 0.05, 4,
+        )
+        carry, nxt, action, info = step(aligned_carry(prob, states), states)
+        assert [k.launches for k in step.kernels] == launches, flags
+        assert torch.isfinite(nxt).all() and torch.isfinite(action).all()
+        assert carry.X_pred.shape == (256, H, 10) and info.converged.shape == (256,)

@@ -3,7 +3,9 @@
 ``make_batched_racing_step`` at N=8, B=4 takes 3 chained closed-loop steps
 on both sides from the bench's aligned carries of ``initial_states`` (seed
 0), in float64, with the bench's line search (6 steps) and penalty
-(mu0=300).  The budget is cut to 2 outer x 3 inner iterations and no polish
+(mu0=300), once through the port's default route (kernels 1 + 2) and once
+through its whole-solve route (kernel 3), against one compiled JAX run.
+The budget is cut to 2 outer x 3 inner iterations and no polish
 phase (the port's polish runs the same ``inner_loop`` at a boosted mu):
 each inner-step copy costs JAX ~30 s of compilation on a CPU, and one
 polish iteration took this test from ~55 s to ~88 s.  JAX runs
@@ -53,34 +55,50 @@ def _close(a, b, what, atol=1e-6):
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=atol * (1.0 + np.abs(b).max()), err_msg=what)
 
 
-def test_closed_loop_matches_jax():
-    jprob, tprob = problems(N)
-    jt, tt = tracks()
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX step's 3 chained closed-loop steps (compiled once per module):
+    the drop's states, JAX's aligned carry and, per step, (carry, next
+    states, action, info) as numpy."""
+    jprob, _ = problems(N)
+    jt, _ = tracks()
     states = initial_states(jt.length, B, np.random.default_rng(0))
-
     jT, _ = jdc.make_transitions(
         jdc.DynamicCarParams.from_config(j_load_config(config_path("models/dynamic_car.yaml")))
     )
     jstep = jax.jit(j_make_step(jprob, JConfig(**BUDGET, unroll=1), jT, jt.data, DT, 4))
     js = jnp.asarray(states)
     jc = j_aligned_carry(jprob, js, jnp.float64)
+    aligned = jax.tree.map(np.asarray, jc)
+    steps = []
+    for _ in range(STEPS):
+        jc, js, ja, jinfo = jstep(jc, js)
+        steps.append(jax.tree.map(np.asarray, (jc, js, ja, jinfo)))
+    return states, aligned, steps
 
+
+def _torch_step(**flags):
+    _, tprob = problems(N)
+    _, tt = tracks()
     tT, _ = tdc.make_transitions(
         tdc.DynamicCarParams.from_config(load_config(config_path("models/dynamic_car.yaml")))
     )
-    tstep = make_batched_racing_step(
-        tprob, ALILQRConfig(**BUDGET), tT, tt.data, DT, 4
+    return tprob, make_batched_racing_step(
+        tprob, ALILQRConfig(**BUDGET, **flags), tT, tt.data, DT, 4
     )
+
+
+def _follow(tprob, tstep, jax_run):
+    """Chain the port's steps from the same drop; compare each with JAX's."""
+    states, jc, jsteps = jax_run
     ts = t(states)
     tc = aligned_carry(tprob, ts, torch.float64)
     _close(tc.X_pred, jc.X_pred, "aligned X_pred")
     _close(tc.U_pred, jc.U_pred, "aligned U_pred")
-
-    for k in range(STEPS):
-        jc, js, ja, jinfo = jstep(jc, js)
+    for k, (jc, js, ja, jinfo) in enumerate(jsteps):
         tc, ts, ta, tinfo = tstep(tc, ts)
-        np.testing.assert_array_equal(tinfo.converged.numpy(), np.asarray(jinfo.converged))
-        np.testing.assert_array_equal(tinfo.iterations.numpy(), np.asarray(jinfo.iterations))
+        np.testing.assert_array_equal(tinfo.converged.numpy(), jinfo.converged)
+        np.testing.assert_array_equal(tinfo.iterations.numpy(), jinfo.iterations)
         _close(ta, ja, f"step {k} action")
         _close(ts, js, f"step {k} next state")
         _close(tinfo.cost, jinfo.cost, f"step {k} cost")
@@ -89,7 +107,21 @@ def test_closed_loop_matches_jax():
         _close(tc.U_pred, jc.U_pred, f"step {k} carry U_pred")
         _close(tc.lam, jc.lam, f"step {k} carry lam", atol=1e-4)
     assert np.isfinite(ts.numpy()).all()
+
+
+def test_closed_loop_matches_jax(jax_run):
+    tprob, tstep = _torch_step()
+    _follow(tprob, tstep, jax_run)
     assert tstep.kernels[0].launches == 0 and tstep.kernels[1].launches == 0
+
+
+def test_whole_solve_closed_loop_matches_jax(jax_run):
+    """The whole-solve route (kernel 3's plain version on CPU tensors) gives
+    JAX's XLA solver's closed loop too: its semantics differ only where no
+    lane of this drop goes."""
+    tprob, tstep = _torch_step(use_solve_kernel=True)
+    _follow(tprob, tstep, jax_run)
+    assert [k.launches for k in tstep.kernels] == [0]
 
 
 @pytest.mark.parametrize(
@@ -121,8 +153,10 @@ def test_port_imports_no_jax():
     mods = [
         "vehicle_control_tpu_torch." + m
         for m in (
-            "parallel.batch", "utils.convert", "utils.config", "solvers.cuda_lib",
-            "solvers.rollout_kernel_fm", "solvers.backward_kernel_fm",
+            "parallel.batch", "utils.convert", "utils.config", "utils.device",
+            "solvers.cuda_lib", "solvers.rollout_kernel_fm", "solvers.backward_kernel_fm",
+            "solvers.solve_kernel_fm", "solvers.derivs_kernel_fm", "solvers.al_ilqr",
+            "solvers.riccati", "controllers.mpc.controllers", "controllers.mpc.problems",
         )
     ]
     code = (

@@ -33,6 +33,11 @@ from vehicle_control_tpu_torch.utils.config import load_config, project_root
 
 F64 = torch.float64
 
+# One intra-op thread per test process: the suite runs in several xdist
+# workers at once, and torch's default of one thread per core would
+# oversubscribe the cores that the JAX tests beside it are timed on.
+torch.set_num_threads(1)
+
 
 def config_path(rel):
     return os.path.join(project_root(), "configs", rel)
@@ -68,7 +73,7 @@ def problems(horizon, dtype_j=jnp.float64, dtype_t=F64):
     )
     tprob = tproblems.build_cascaded_problem(
         load_config(config_path("models/dynamic_car.yaml")), tt,
-        singletrack_cfg(horizon), "none", dtype_t,
+        singletrack_cfg(horizon), "none", dtype_t, "cpu",
     )
     return jprob, tprob
 
@@ -154,5 +159,32 @@ def backward_oracle(jprob, X, U, lam, mu, rho, params):
 
     out = jax.jit(jax.vmap(one))(
         *[jnp.asarray(a) for a in (X, U, lam, mu, rho, params.curvature, params.ds)]
+    )
+    return tuple(np.asarray(a) for a in out)
+
+
+def derivs_oracle(jprob, X, U, lam, mu, params):
+    """(g, Hw, J) per (scenario, stage) from JAX autodiff of the problem's
+    public callbacks: jax.grad and jax.jacfwd(jax.grad) of the AL stage cost
+    (Hw unsymmetrized) and jax.jacfwd of the dynamics, over w = (z, u)."""
+    fns, H, nz = jprob.fns, jprob.horizon, jprob.nz
+    ns = jnp.arange(H)
+
+    def stage(n, z, u, lam_n, m, pp):
+        w = jnp.concatenate([z, u])
+
+        def cost_fn(ww):
+            c = fns.constraints(n, ww[:nz], ww[nz:], pp)
+            return fns.stage_cost(n, ww[:nz], ww[nz:], pp) + _al_penalty(c, lam_n, m)
+
+        J = jax.jacfwd(lambda ww: fns.dynamics(n, ww[:nz], ww[nz:], pp))(w)
+        return jax.grad(cost_fn)(w), jax.jacfwd(jax.grad(cost_fn))(w), J
+
+    def one(X1, U1, lam1, mu1, k1, ds1):
+        pp = jproblems.HorizonParams(k1, ds1)
+        return jax.vmap(lambda n, z, u, l: stage(n, z, u, l, mu1, pp))(ns, X1, U1, lam1)
+
+    out = jax.jit(jax.vmap(one))(
+        *[jnp.asarray(a) for a in (X, U, lam, mu, params.curvature, params.ds)]
     )
     return tuple(np.asarray(a) for a in out)

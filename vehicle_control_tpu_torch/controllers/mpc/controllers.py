@@ -3,8 +3,8 @@
 ``step(carry, state) -> (carry', action, info)`` on a batch: the carry is
 the warm start (previous predictions and AL multipliers), shifted one stage
 forward after every solve; a lane whose solve diverged is reset to the
-problem's cold-start guess.  The stateful ``_MPCBase`` wrappers are not
-ported yet.
+problem's cold-start guess.  The solver config's flags pick the kernels
+(``_kernels``).  The stateful ``_MPCBase`` wrappers are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ import torch
 from vehicle_control_tpu_torch.controllers.mpc.problems import MPCProblem
 from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig, build_solver
 from vehicle_control_tpu_torch.solvers.backward_kernel_fm import BackwardKernelFM
+from vehicle_control_tpu_torch.solvers.derivs_kernel_fm import DerivsKernelFM
 from vehicle_control_tpu_torch.solvers.rollout_kernel_fm import LinesearchKernelFM
+from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM
 
 
 class MPCCarry(NamedTuple):
@@ -57,17 +59,32 @@ def _shift(a):
     return torch.cat([a[:, 1:], a[:, -1:]], dim=1)
 
 
+def _kernels(problem: MPCProblem, solver_cfg: ALILQRConfig) -> dict:
+    """The kernel wrappers the config's flags pick, as build_solver's keywords.
+
+    ``use_solve_kernel``: kernel 3 alone; else ``use_derivs_kernel``: kernel 4
+    (then the torch Riccati sweep) with kernel 1; else kernels 1 and 2.  The
+    port has no autodiff route, so ``use_ls_kernel`` and
+    ``use_backward_kernel`` pick nothing the default does not.
+    """
+    fam = problem.family
+    if solver_cfg.use_solve_kernel:
+        return dict(solve_kernel=SolveKernelFM(fam, solver_cfg))
+    ls_kernel = LinesearchKernelFM(fam, solver_cfg.alphas())
+    if solver_cfg.use_derivs_kernel:
+        return dict(ls_kernel=ls_kernel, derivs_kernel=DerivsKernelFM(fam))
+    return dict(ls_kernel=ls_kernel, backward_kernel=BackwardKernelFM(fam))
+
+
 def make_mpc_step(problem: MPCProblem, solver_cfg: ALILQRConfig):
     """Build the batched per-control-step function.
 
-    The returned ``step`` carries ``step.kernels``: the line-search and
-    backward kernel wrappers it launches, whose ``launches`` count them.
+    The returned ``step`` carries ``step.kernels``: the kernel wrappers it
+    launches (see ``_kernels``), whose ``launches`` count them.
     """
-    ls_kernel = LinesearchKernelFM(problem.family, solver_cfg.alphas())
-    backward_kernel = BackwardKernelFM(problem.family)
+    kernels = _kernels(problem, solver_cfg)
     solve = build_solver(
-        problem.fns, problem.horizon, solver_cfg, problem.u_lo, problem.u_hi,
-        ls_kernel, backward_kernel,
+        problem.fns, problem.horizon, solver_cfg, problem.u_lo, problem.u_hi, **kernels
     )
 
     def step(carry: MPCCarry, state):
@@ -94,7 +111,7 @@ def make_mpc_step(problem: MPCProblem, solver_cfg: ALILQRConfig):
         info = MPCInfo(sol.cost, sol.violation, sol.converged, sol.iterations, sol.X)
         return new_carry, action, info
 
-    step.kernels = (ls_kernel, backward_kernel)
+    step.kernels = tuple(kernels.values())
     return step
 
 

@@ -22,6 +22,7 @@ import torch
 from vehicle_control_tpu_torch.environment import track as track_mod
 from vehicle_control_tpu_torch.solvers.al_ilqr import OCPFunctions
 from vehicle_control_tpu_torch.solvers.fm_family import FMFamily, build_cascaded_family
+from vehicle_control_tpu_torch.utils.device import DEFAULT_DEVICE, require_device
 
 FORCE_SCALE = 1000.0  # solve forces in kN
 
@@ -55,9 +56,13 @@ def _fields(z, u):
 
 def build_cascaded_problem(
     car_config, track: "track_mod.Track", cfg, tail: str = "none",
-    dtype=torch.float64, device=None,
+    dtype=torch.float64, device=DEFAULT_DEVICE,
 ) -> MPCProblem:
-    """Single-track MPC problem on ``device`` in ``dtype`` (tail="none")."""
+    """Single-track MPC problem on ``device`` in ``dtype`` (tail="none").
+
+    The card is the default; without CUDA that raises, and the caller asks
+    for ``device="cpu"`` (where the kernels' plain versions run)."""
+    device = require_device(device)
     family = build_cascaded_family(car_config, cfg, tail)  # raises past tail="none"
     track_data = track.data.to(device=device, dtype=dtype)
     p = family.params

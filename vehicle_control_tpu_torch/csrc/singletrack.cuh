@@ -1,10 +1,12 @@
 // Single-track family device functions: the CUDA transcription of
 // vehicle_control_tpu_torch/solvers/fm_singletrack.py, models/dynamic_car.py
-// and the tail="none" closures of solvers/fm_family.py (al_cost, dyn,
-// u_box, constraints, stage_derivs), plus the per-lane bodies of the two
-// kernels.  Templates over the scalar type give values (float) and exact
-// derivatives (Jet).  The polynomial arctan is kept, as on every path of
-// the JAX package, so the numbers stay comparable; no atanf.
+// and the tail="none" closures of solvers/fm_family.py (stage_cost,
+// constraints, al_cost, dyn, u_box, stage_derivs), plus the per-lane pieces
+// the kernels share: the closed-loop stage of a line-search candidate
+// (kernels 1 and 3) and the backward sweep (kernels 2 and 3).  Templates
+// over the scalar type give values (float) and exact derivatives (Jet).
+// The polynomial arctan is kept, as on every path of the JAX package, so
+// the numbers stay comparable; no atanf.
 //
 // Layout: struct of arrays, (stage, field, scenario) with the scenario
 // index fastest, so neighbouring threads read neighbouring addresses.
@@ -240,10 +242,9 @@ VCT_HD T phr(const T& c, float lam, float mu) {
   return lam_hat * lam_hat - lam * lam;
 }
 
-// the family's AL stage cost at stage n of H (tail="none": N == H)
+// the family's raw stage cost (no penalty) at stage n of H (tail="none": N == H)
 template <class T>
-VCT_HD_NOINLINE T al_cost(int n, int H, const T wf[NW], const float lam[NC], float mu, float dsn,
-                          float dsp, const STParams& p) {
+VCT_HD T stage_cost(int n, int H, const T wf[NW], float dsn, float dsp, const STParams& p) {
   const T* x = wf;
   T Fx = wf[NZ] * FS, wact = wf[NZ + 1];
   const T& ey = x[5];
@@ -257,10 +258,25 @@ VCT_HD_NOINLINE T al_cost(int n, int H, const T wf[NW], const float lam[NC], flo
     cost = cost + (p.w_speed * over + p.w_time * x[7] + p.w_ey * (ey * ey) +
                    p.w_epsi * (x[6] * x[6]));
   }
-  T c[NC];
-  constraints(x, Fx, wact, p, c);
-  if (n == 0)  // the state-only rows are undecidable at the fixed stage-0 state
+  return cost;
+}
+
+// the stage constraints at stage n: the state-only rows are undecidable at
+// the fixed stage-0 state, so they read -1 there
+template <class T>
+VCT_HD void stage_constraints(int n, const T wf[NW], const STParams& p, T c[NC]) {
+  constraints(wf, wf[NZ] * FS, wf[NZ + 1], p, c);
+  if (n == 0)
     for (int j = 0; j < 3; ++j) c[j] = cst<T>(-1.f);
+}
+
+// the family's AL stage cost at stage n of H
+template <class T>
+VCT_HD_NOINLINE T al_cost(int n, int H, const T wf[NW], const float lam[NC], float mu, float dsn,
+                          float dsp, const STParams& p) {
+  T cost = stage_cost(n, H, wf, dsn, dsp, p);
+  T c[NC];
+  stage_constraints(n, wf, p, c);
   T acc = cst<T>(0.f);
   for (int j = 0; j < NC; ++j) acc = acc + phr(c[j], lam[j], mu);
   return cost + acc / (2.f * mu);
@@ -360,47 +376,86 @@ VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float 
 // SoA indexing helpers: (stage, field, scenario)
 VCT_HD int at2(int n, int f, int F, int b, int B) { return (n * F + f) * B + b; }
 
+// one stage of one lane as the closed-loop rollouts read it: the reference
+// state and control, the gains, the multipliers and the arc parameters
+struct Stage {
+  float xref[NZ], uref[NU], kff[NU], kfb[NU][NZ], lam[NC];
+  float kv, dsn, dsp;
+};
+
+VCT_HD void load_stage(int n, int b, int B, const float* X, const float* U, const float* kff,
+                       const float* kfb, const float* lam, const float* curv, const float* ds,
+                       Stage& s) {
+  for (int i = 0; i < NZ; ++i) s.xref[i] = X[at2(n, i, NZ, b, B)];
+  for (int j = 0; j < NU; ++j) {
+    s.uref[j] = U[at2(n, j, NU, b, B)];
+    s.kff[j] = kff[at2(n, j, NU, b, B)];
+    for (int i = 0; i < NZ; ++i) s.kfb[j][i] = kfb[((size_t)(n * NU + j) * NZ + i) * B + b];
+  }
+  for (int j = 0; j < NC; ++j) s.lam[j] = lam[at2(n, j, NC, b, B)];
+  s.kv = curv[n * B + b];
+  s.dsn = ds[n * B + b];
+  s.dsp = ds[(n > 0 ? n - 1 : 0) * B + b];
+}
+
+// the closed-loop law u = clip(uref + alpha*kff + Kfb (z - xref), u_box).
+// Not inlined, so the line search and the re-roll of its choice run the
+// same instructions and agree to the bit.
+VCT_HD_NOINLINE void feedback_u(float alpha, const float z[NZ], const Stage& s,
+                                const STParams& p, float u[NU]) {
+  const float lo[NU] = {p.u0_lo, p.u1_lo}, hi[NU] = {p.u0_hi, p.u1_hi};
+  float dz[NZ];
+  for (int i = 0; i < NZ; ++i) dz[i] = z[i] - s.xref[i];
+  for (int j = 0; j < NU; ++j) {
+    float fb = dz[0] * s.kfb[j][0];
+    for (int i = 1; i < NZ; ++i) fb = fb + dz[i] * s.kfb[j][i];
+    float uj = s.uref[j] + alpha * s.kff[j] + fb;
+    u[j] = vmin(vmax(uj, lo[j]), hi[j]);
+  }
+}
+
+// one stage of a line-search candidate: adds the AL stage cost to acc and
+// steps z; a next state that is non-finite or reaches |z| >= 1e7 makes acc
+// +inf for good
+VCT_HD void candidate_stage(int n, int H, float alpha, float mu, const Stage& s,
+                            const STParams& p, float z[NZ], float& acc) {
+  float wf[NW], nxt[NZ];
+  feedback_u(alpha, z, s, p, wf + NZ);
+  for (int i = 0; i < NZ; ++i) wf[i] = z[i];
+  float cost = al_cost(n, H, wf, s.lam, mu, s.dsn, s.dsp, p);
+  dyn(wf, s.kv, s.dsn, p, nxt);
+  bool ok = true;
+  for (int i = 0; i < NZ; ++i) {
+    ok = ok && finite(nxt[i]) && fabsf(nxt[i]) < 1e7f;
+    z[i] = nxt[i];
+  }
+  acc = ok ? acc + cost : INFINITY;
+}
+
 // kernel 1: the line-search cost of step size alpha for scenario b
 VCT_HD void linesearch_lane(int b, int B, int H, float alpha, const float* xref,
                             const float* uref, const float* kff, const float* kfb,
                             const float* lam, const float* mu, const float* curv,
                             const float* ds, const float* z0, float* cost_out,
                             const STParams& p) {
-  const float lo[NU] = {p.u0_lo, p.u1_lo}, hi[NU] = {p.u0_hi, p.u1_hi};
-  float z[NZ], wf[NW], lamv[NC], nxt[NZ];
+  float z[NZ];
   for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
   float m = mu[b], acc = 0.f;
   for (int n = 0; n < H; ++n) {
-    float dz[NZ];
-    for (int i = 0; i < NZ; ++i) dz[i] = z[i] - xref[at2(n, i, NZ, b, B)];
-    for (int j = 0; j < NU; ++j) {
-      const float* K = kfb + (size_t)(n * NU + j) * NZ * B;
-      float fb = dz[0] * K[b];
-      for (int i = 1; i < NZ; ++i) fb = fb + dz[i] * K[(size_t)i * B + b];
-      float uj = uref[at2(n, j, NU, b, B)] + alpha * kff[at2(n, j, NU, b, B)] + fb;
-      wf[NZ + j] = vmin(vmax(uj, lo[j]), hi[j]);
-    }
-    for (int i = 0; i < NZ; ++i) wf[i] = z[i];
-    for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-    float kv = curv[n * B + b], dsn = ds[n * B + b];
-    float dsp = ds[(n > 0 ? n - 1 : 0) * B + b];
-    float cost = al_cost(n, H, wf, lamv, m, dsn, dsp, p);
-    dyn(wf, kv, dsn, p, nxt);
-    bool ok = true;
-    for (int i = 0; i < NZ; ++i) {
-      ok = ok && finite(nxt[i]) && fabsf(nxt[i]) < 1e7f;
-      z[i] = nxt[i];
-    }
-    acc = ok ? acc + cost : INFINITY;
+    Stage s;
+    load_stage(n, b, B, xref, uref, kff, kfb, lam, curv, ds, s);
+    candidate_stage(n, H, alpha, m, s, p, z, acc);
   }
   cost_out[b] = finite(acc) ? acc : INFINITY;
 }
 
-// kernel 2: the fused backward pass (derivatives + Riccati) of scenario b
-VCT_HD void backward_lane(int b, int B, int H, const float* X, const float* U,
-                          const float* lam, const float* mu_, const float* rho_,
-                          const float* curv, const float* ds, float* kff, float* kfb,
-                          float* dv, float* fail_out, const STParams& p) {
+// the fused backward pass (derivatives + Riccati) of scenario b: writes the
+// gains kff (H, NU, B) and kfb (H, NU, NZ, B); returns the expected-decrease
+// terms and whether some stage's regularized Quu was not positive definite
+VCT_HD void backward_sweep(int b, int B, int H, const float* X, const float* U,
+                           const float* lam, float mu, float rho, const float* curv,
+                           const float* ds, float* kff, float* kfb, float& dV1_out,
+                           float& dV2_out, bool& fail_out, const STParams& p) {
   float Vx[NZ], Vxx[NZ][NZ];
   for (int r = 0; r < NZ; ++r) {
     Vx[r] = 0.f;
@@ -408,7 +463,6 @@ VCT_HD void backward_lane(int b, int B, int H, const float* X, const float* U,
   }
   float dV1 = 0.f, dV2 = 0.f;
   bool fail = false;
-  float mu = mu_[b], rho = rho_[b];
   for (int n = H - 1; n >= 0; --n) {
     float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
     for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
@@ -496,8 +550,19 @@ VCT_HD void backward_lane(int b, int B, int H, const float* X, const float* U,
     dV2 += 0.5f * (k0 * Quuk0 + k1 * Quuk1);
     fail = fail || bad;
   }
-  dv[b] = dV1;
-  dv[B + b] = dV2;
+  dV1_out = dV1;
+  dV2_out = dV2;
+  fail_out = fail;
+}
+
+// kernel 2: the backward pass of scenario b; dv (2, B), fail_out (B) as 0/1
+VCT_HD void backward_lane(int b, int B, int H, const float* X, const float* U,
+                          const float* lam, const float* mu, const float* rho,
+                          const float* curv, const float* ds, float* kff, float* kfb,
+                          float* dv, float* fail_out, const STParams& p) {
+  bool fail;
+  backward_sweep(b, B, H, X, U, lam, mu[b], rho[b], curv, ds, kff, kfb, dv[b], dv[B + b], fail,
+                 p);
   fail_out[b] = fail ? 1.f : 0.f;
 }
 

@@ -2,16 +2,18 @@
 vehicle_control_tpu/solvers/al_ilqr.py).
 
 The outer loop updates PHR multipliers, the inner iLQR loop takes a backward
-pass (kernel 2: derivatives + Riccati), costs every line-search candidate at
-once (kernel 1), picks per lane the largest step that passes Armijo on the
-quadratic model, and re-rolls that candidate in PyTorch.  Every scenario is
-a lane: ``mu``, ``rho``, ``done`` and the accepted-step count are (B,)
+pass, costs every line-search candidate at once (kernel 1), picks per lane
+the largest step that passes Armijo on the quadratic model, and re-rolls
+that candidate in PyTorch.  The backward pass is kernel 2 (derivatives +
+Riccati in one launch) or, on the derivatives route, kernel 4 (stage
+derivatives) followed by the torch Riccati sweep.  Every scenario is a
+lane: ``mu``, ``rho``, ``done`` and the accepted-step count are (B,)
 tensors and every update is masked per lane.  Iteration counts are fixed;
 nothing exits early.
 
-This is the JAX package's per-phase kernel configuration; its whole-solve
-kernel, the stage-derivatives kernel, iteration traces and the parallel
-Riccati are not ported yet.
+With a whole-solve kernel (kernel 3, ``solve_kernel_fm``) the solve is one
+call to it and none of the loop above runs in torch.  Iteration traces and
+the parallel Riccati are not ported yet.
 
 Problem form (all shapes static, stage index n a Python int):
 
@@ -27,6 +29,8 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+
+from vehicle_control_tpu_torch.solvers.riccati import riccati_from_derivs
 
 
 class OCPFunctions(NamedTuple):
@@ -59,11 +63,29 @@ class ALILQRConfig:
     tol_cost: float = 1e-7  # relative cost-decrease convergence tol
     tol_con: float = 1e-4  # constraint-violation tolerance
     armijo: float = 1e-4
+    # kernel routes, read by make_mpc_step (the port has no autodiff route:
+    # with none of them set it takes kernels 1 + 2)
+    use_ls_kernel: bool = False  # line-search costs kernel
+    use_derivs_kernel: bool = False  # stage-derivatives kernel + torch Riccati
+    use_backward_kernel: bool = False  # fused derivatives + Riccati kernel
+    use_solve_kernel: bool = False  # the whole solve in one kernel launch
+    ls_fast_path: bool = False  # solve kernel: sweep alpha=1 first and the
+    # rest of the ladder only where it fails Armijo (bitwise-identical)
+    early_exit: bool = True  # solve kernel: a lane leaves the inner loop
+    # once it is done (bitwise-identical: every later update is masked)
     recover_viol: float = 5.0  # make_mpc_step's per-lane reset threshold (0: off)
 
     def alphas(self):
         """Line-search candidates: geometric ladder from 1 down to alpha_min."""
         return [self.alpha_min ** (i / (self.n_alpha - 1)) for i in range(self.n_alpha)]
+
+    def mu_schedule(self):
+        """The penalty of each outer iteration, then the polish phase's."""
+        mus, mu = [], self.mu0
+        for _ in range(self.n_outer):
+            mus.append(mu)
+            mu = min(mu * self.mu_scale, self.mu_max)
+        return mus + [min(mu * self.polish_mu_boost, self.mu_max)]
 
 
 class Solution(NamedTuple):
@@ -82,6 +104,10 @@ def _al_penalty(c, lam, mu):
     return ((lam_hat**2).sum(-1) - (lam**2).sum(-1)) / (2.0 * mu)
 
 
+def _n_constraints(fns: OCPFunctions, z0, U, params) -> int:
+    return fns.constraints(0, z0, U[:, 0], params).shape[-1]
+
+
 def rollout(fns: OCPFunctions, params, z0, U):
     """Open-loop rollout of U (B, H, nu) from z0 (B, nz); returns (X, cost)."""
     z, total, Xs = z0, 0.0, []
@@ -93,18 +119,44 @@ def rollout(fns: OCPFunctions, params, z0, U):
 
 
 def build_solver(fns: OCPFunctions, horizon: int, config: ALILQRConfig, u_lo, u_hi,
-                 ls_kernel, backward_kernel):
+                 ls_kernel=None, backward_kernel=None, derivs_kernel=None,
+                 solve_kernel=None):
     """Return ``solve(params, z0, U_init, lam_init) -> Solution``.
 
-    ``u_lo``/``u_hi`` (H, nu): control boxes projected in every rollout.
-    ``ls_kernel(Xref, Uref, kff, Kfb, lam, mu, curv, ds, z0) -> (A, B)`` and
-    ``backward_kernel(X, U, lam, mu, rho, curv, ds) -> (kff, Kfb, dV1, dV2,
-    fail)`` are the two kernels' wrappers; ``params`` carries ``curvature``
-    and ``ds`` (B, H).
+    ``u_lo``/``u_hi`` (H, nu): control boxes projected in every rollout;
+    ``params`` carries ``curvature`` and ``ds`` (B, H).  The kernels'
+    wrappers:
+
+    * ``solve_kernel(z0, U_init, lam_init, curv, ds) -> (X, U, lam, cost,
+      violation, converged, iterations)``: the whole solve; with it no other
+      kernel is used;
+    * else ``ls_kernel(Xref, Uref, kff, Kfb, lam, mu, curv, ds, z0) -> (A,
+      B)`` with either ``derivs_kernel(X, U, lam, mu, curv, ds) -> (g, Hw,
+      J)`` (then the torch Riccati sweep) or ``backward_kernel(X, U, lam,
+      mu, rho, curv, ds) -> (kff, Kfb, dV1, dV2, fail)``.
     """
     cfg = config
     H = horizon
     alpha_list = cfg.alphas()
+
+    if solve_kernel is not None:
+
+        def solve_in_one_launch(params, z0, U_init, lam_init=None):
+            if lam_init is None:
+                nc = _n_constraints(fns, z0, U_init, params)
+                lam_init = U_init.new_zeros(U_init.shape[0], H, nc)
+            return Solution(*solve_kernel(z0, U_init, lam_init, params.curvature, params.ds))
+
+        return solve_in_one_launch
+    if ls_kernel is None or (derivs_kernel is None) == (backward_kernel is None):
+        raise ValueError("give a solve kernel, or a line-search kernel with one of the "
+                         "derivatives and backward kernels")
+
+    def backward_pass(X, U, lam, mu, rho, params):
+        if backward_kernel is not None:
+            return backward_kernel(X, U, lam, mu, rho, params.curvature, params.ds)
+        g, Hw, Jm = derivs_kernel(X, U, lam, mu, params.curvature, params.ds)
+        return riccati_from_derivs(X.shape[-1], g, Hw, Jm, rho)
 
     def clamp_u(n, u):
         return torch.clamp(u, u_lo[n], u_hi[n])
@@ -141,9 +193,7 @@ def build_solver(fns: OCPFunctions, horizon: int, config: ALILQRConfig, u_lo, u_
     def inner_step(state, lam, mu, params, z0):
         X, U, cost_al, rho, done, n_acc = state
         alphas = torch.as_tensor(alpha_list, dtype=U.dtype, device=U.device)
-        kffs, Kfbs, dV1, dV2, bp_fail = backward_kernel(
-            X, U, lam, mu, rho, params.curvature, params.ds
-        )
+        kffs, Kfbs, dV1, dV2, bp_fail = backward_pass(X, U, lam, mu, rho, params)
         costs = ls_kernel(X, U, kffs, Kfbs, lam, mu, params.curvature, params.ds, z0).T
         expected = -(alphas * dV1[:, None] + alphas**2 * dV2[:, None])
         improvement = cost_al[:, None] - costs
@@ -197,7 +247,9 @@ def build_solver(fns: OCPFunctions, horizon: int, config: ALILQRConfig, u_lo, u_
     def solve(params, z0, U_init, lam_init=None):
         B = z0.shape[0]
         kw = dict(dtype=U_init.dtype, device=U_init.device)
-        lam = lam_init if lam_init is not None else torch.zeros(B, H, fns_nc(z0, U_init, params), **kw)
+        if lam_init is None:
+            lam_init = torch.zeros(B, H, _n_constraints(fns, z0, U_init, params), **kw)
+        lam = lam_init
         mu = torch.full((B,), cfg.mu0, **kw)
         rho = torch.full((B,), cfg.rho0, **kw)
         n_acc = torch.zeros(B, dtype=torch.int32, device=U_init.device)
@@ -217,8 +269,5 @@ def build_solver(fns: OCPFunctions, horizon: int, config: ALILQRConfig, u_lo, u_
         violation = torch.clamp_min(all_constraints(X, U, params).amax((1, 2)), 0.0)
         converged = (violation < cfg.tol_con) & torch.isfinite(cost)
         return Solution(X, U, lam, cost, violation, converged, n_acc)
-
-    def fns_nc(z0, U, params):
-        return fns.constraints(0, z0, U[:, 0], params).shape[-1]
 
     return solve

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from vehicle_control_tpu_torch.solvers import cuda_lib
-from vehicle_control_tpu_torch.solvers.riccati import riccati_backward
+from vehicle_control_tpu_torch.solvers.riccati import riccati_from_derivs
 
 
 def stage_derivatives(family, X, U, lam, mu, curv, ds):
@@ -36,13 +36,8 @@ def stage_derivatives(family, X, U, lam, mu, curv, ds):
 
 def backward_plain(family, X, U, lam, mu, rho, curv, ds):
     """The plain PyTorch version of kernel 2: stage derivatives, then Riccati."""
-    NZ = family.NZ
     g, Hw, Jm = stage_derivatives(family, X, U, lam, mu, curv, ds)
-    Hw = 0.5 * (Hw + Hw.transpose(-1, -2))
-    return riccati_backward(
-        g[..., :NZ], g[..., NZ:], Hw[..., :NZ, :NZ], Hw[..., NZ:, :NZ],
-        Hw[..., NZ:, NZ:], Jm[..., :NZ], Jm[..., NZ:], rho,
-    )
+    return riccati_from_derivs(family.NZ, g, Hw, Jm, rho)
 
 
 class BackwardKernelFM:

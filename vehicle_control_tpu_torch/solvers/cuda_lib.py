@@ -2,12 +2,13 @@
 helpers their wrappers share: the parameter block, the struct-of-arrays
 layout and the input checks.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds, not minutes).  The library lands in
-``build/kernels/`` at the checkout's root under a name that carries the hash
-of the sources and flags, so an edited source is rebuilt at its first use.
-Nothing is built or loaded when this module is imported.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds, not minutes).  The library lands in ``build/kernels/`` at the
+checkout's root under a name that carries the hash of the sources and
+flags, so an edited source is rebuilt at its first use.  Nothing is built or
+loaded when this module is imported.
 
 Without ``--use_fast_math``: the kernels must match their plain PyTorch
 versions.
@@ -32,10 +33,49 @@ from vehicle_control_tpu_torch.utils.config import project_root
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
-MAX_ALPHA = 16  # csrc/singletrack.cuh: MAX_ALPHA, the step sizes kernel 1 takes
+MAX_ALPHA = 16  # csrc/singletrack.cuh: MAX_ALPHA, the step sizes kernels 1 and 3 take
+MAX_OUTER = 15  # csrc/solve_fm.cu: MAX_OUTER, the outer iterations kernel 3 takes
+SOLVE_STATS = 6  # rows of kernel 3's per-lane outputs: cost, violation,
+# converged, iterations, first accepted step, inner iterations run
+
+
+class SolveConfig(ctypes.Structure):
+    """Kernel 3's solver constants (csrc/solve_fm.cu: SolveConfig), f32 as
+    the kernel computes; ``mus`` is the penalty of each outer iteration, then
+    the polish phase's."""
+
+    _fields_ = [
+        ("n_outer", ctypes.c_int), ("n_inner", ctypes.c_int), ("n_polish", ctypes.c_int),
+        ("n_alpha", ctypes.c_int), ("early_exit", ctypes.c_int), ("ls_fast_path", ctypes.c_int),
+        ("alphas", ctypes.c_float * MAX_ALPHA), ("alphas2", ctypes.c_float * MAX_ALPHA),
+        ("mus", ctypes.c_float * (MAX_OUTER + 1)),
+        ("armijo", ctypes.c_float), ("tol_cost", ctypes.c_float), ("tol_con", ctypes.c_float),
+        ("rho0", ctypes.c_float), ("rho_scale", ctypes.c_float), ("rho_min", ctypes.c_float),
+        ("rho_max", ctypes.c_float),
+    ]
+
+
+def solve_config(cfg) -> SolveConfig:
+    """Kernel 3's constants from an ALILQRConfig."""
+    alphas = cfg.alphas()
+    if not 1 <= len(alphas) <= MAX_ALPHA:
+        raise ValueError(f"1..{MAX_ALPHA} step sizes, got {len(alphas)}")
+    if not 0 <= cfg.n_outer <= MAX_OUTER:
+        raise ValueError(f"0..{MAX_OUTER} outer iterations, got {cfg.n_outer}")
+    mus = cfg.mu_schedule()
+    pad = lambda v, n: v + [0.0] * (n - len(v))  # noqa: E731
+    return SolveConfig(
+        cfg.n_outer, cfg.n_inner, cfg.n_polish, len(alphas), int(cfg.early_exit),
+        int(cfg.ls_fast_path),
+        (ctypes.c_float * MAX_ALPHA)(*pad(alphas, MAX_ALPHA)),
+        (ctypes.c_float * MAX_ALPHA)(*pad([a * a for a in alphas], MAX_ALPHA)),
+        (ctypes.c_float * (MAX_OUTER + 1))(*pad(mus, MAX_OUTER + 1)),
+        cfg.armijo, cfg.tol_cost, cfg.tol_con, cfg.rho0, cfg.rho_scale, cfg.rho_min,
+        cfg.rho_max,
+    )
 
 # STParams field order (csrc/singletrack.cuh); every field is a float
 PARAM_FIELDS = (
@@ -61,7 +101,10 @@ def _nvcc() -> str:
 
 
 def build_library() -> str:
-    """Compile ``csrc/*.cu`` unless a library for these sources exists; return its path."""
+    """Compile ``csrc/*.cu`` unless a library for these sources exists; return
+    its path.  Each source compiles in its own ``nvcc``, all at once; the
+    compilers' output (ptxas registers and spills) goes to a ``.log`` beside
+    the library."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -73,17 +116,32 @@ def build_library() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(lib[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-6000:]}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o") for src in sources]
+        jobs = []
+        for src, obj in zip(sources, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-6000:]}")
+        if not failed:
+            so = os.path.join(tmp, "lib.so")
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", so, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-6000:]}")
+        with open(lib[:-3] + ".log", "w") as fh:
+            fh.write("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(so, lib)
     return lib
 
 
@@ -102,8 +160,18 @@ def load_library() -> ctypes.CDLL:
     # (params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B, H, stream)
     lib.vct_backward_fm.argtypes = [P] + [P] * 11 + [I, I, P]
     lib.vct_backward_fm.restype = I
+    # (params, cfg, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats, B, H, stream)
+    lib.vct_solve_fm.argtypes = [P, P] + [P] * 11 + [I, I, P]
+    lib.vct_solve_fm.restype = I
+    lib.vct_solve_config_size.argtypes = []
+    lib.vct_solve_config_size.restype = I
+    # (params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream)
+    lib.vct_derivs_fm.argtypes = [P] + [P] * 9 + [I, I, P]
+    lib.vct_derivs_fm.restype = I
     if lib.vct_param_count() != len(PARAM_FIELDS):
         raise RuntimeError("csrc STParams and PARAM_FIELDS disagree")
+    if lib.vct_solve_config_size() != ctypes.sizeof(SolveConfig):
+        raise RuntimeError("csrc SolveConfig and cuda_lib.SolveConfig disagree")
     return lib
 
 

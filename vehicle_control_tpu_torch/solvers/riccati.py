@@ -80,3 +80,14 @@ def riccati_backward(lz, lu, lzz, luz, luu, A, B, rho):
         dV2 = dV2 + 0.5 * (kff * Quuk).sum(-1)
         fail = fail | bad
     return kffs, Kfbs, dV1, dV2, fail
+
+
+def riccati_from_derivs(nz, g, Hw, Jm, rho):
+    """The sweep over stage derivatives as the derivatives kernels give them:
+    g (Bt, H, nw), Hw (Bt, H, nw, nw) unsymmetrized, Jm (Bt, H, nz, nw),
+    with w = (z (nz), u); the Hessian is symmetrized and split into blocks."""
+    Hw = 0.5 * (Hw + Hw.transpose(-1, -2))
+    return riccati_backward(
+        g[..., :nz], g[..., nz:], Hw[..., :nz, :nz], Hw[..., nz:, :nz],
+        Hw[..., nz:, nz:], Jm[..., :nz], Jm[..., nz:], rho,
+    )

@@ -19,21 +19,28 @@ import torch
 from vehicle_control_tpu_torch.solvers import cuda_lib
 
 
+def feedback_controls(family, n, z, alpha, Xref, Uref, kffs, Kfbs):
+    """u = clip(Uref + alpha*kff + Kfb (z - Xref), u_box) at stage n: the
+    closed-loop law of the line search and of the re-roll of its choice.
+    ``z`` is the list of NZ state fields; ``alpha`` broadcasts against them."""
+    dz = [z[i] - Xref[:, n, i] for i in range(family.NZ)]
+    u = []
+    for j in range(family.NU):
+        fb = dz[0] * Kfbs[:, n, j, 0]
+        for i in range(1, family.NZ):
+            fb = fb + dz[i] * Kfbs[:, n, j, i]
+        lo, hi = family.u_box(n, j)
+        u.append(torch.clamp(Uref[:, n, j] + alpha * kffs[:, n, j] + fb, lo, hi))
+    return u
+
+
 def linesearch_costs_plain(family, alphas, Xref, Uref, kffs, Kfbs, lam, mu, curv, ds, z0):
     """The plain PyTorch version of kernel 1, batched over (A, B)."""
-    NZ, NU = family.NZ, family.NU
     al = torch.as_tensor(list(alphas), dtype=Xref.dtype, device=Xref.device)[:, None]
-    z = [z0[:, i] + 0.0 * al for i in range(NZ)]  # (A, B) fields
+    z = [z0[:, i] + 0.0 * al for i in range(family.NZ)]  # (A, B) fields
     acc = torch.zeros_like(z[0])
     for n in range(family.H):
-        dz = [z[i] - Xref[:, n, i] for i in range(NZ)]
-        u = []
-        for j in range(NU):
-            fb = dz[0] * Kfbs[:, n, j, 0]
-            for i in range(1, NZ):
-                fb = fb + dz[i] * Kfbs[:, n, j, i]
-            lo, hi = family.u_box(n, j)
-            u.append(torch.clamp(Uref[:, n, j] + al * kffs[:, n, j] + fb, lo, hi))
+        u = feedback_controls(family, n, z, al, Xref, Uref, kffs, Kfbs)
         wf = tuple(z) + tuple(u)
         kv = curv[:, n]
         ds_read = lambda i: ds[:, i]  # noqa: E731
