@@ -10,16 +10,18 @@ seed 0) with their aligned warm starts, rolled out under perturbed controls,
 with random multipliers and gains.  They are made in float64 on the CPU and
 handed to both versions as float32 on the card.
 
-Tolerances: with rho = 1 the Riccati step is well conditioned, and at H=8
-the plain version in float32 stays within ~1e-7 of float64 (costs: ~1e-6
-relative), so kernel and plain version, which round differently, agree to
-1e-4.  (At small rho the float32 gains themselves are noisy; chip_smoke.py
+The single-track family runs at H=8, the point-mass cascade (tail="pm") at
+N=4 + M=4.  Tolerances: with rho = 1 the Riccati step is well conditioned,
+and at H=8 the plain version in float32 stays within ~1e-7 of float64
+(costs: ~1e-6 relative; ~2e-6 on the cascade), so kernel and plain
+version, which round differently, agree to 1e-4.  (At small rho the float32 gains themselves are noisy; chip_smoke.py
 checks that regime against float64.)  The whole solve (kernel 3) is held to
 the same tolerance in that regime: one outer and one inner iteration at
 rho0 = 1, where both versions must also pick the same step on every lane.
 Lanes 0 and 1 start beyond the state guard and from a NaN: there only the
 flags and counts are compared.  Its early exit and alpha=1 fast path must
-change no output bit.
+change no output bit.  Kernel 5 (the array-of-structs line search) gives
+kernel 1's costs on the same numbers, to the same tolerance.
 """
 
 import numpy as np
@@ -37,6 +39,7 @@ from vehicle_control_tpu_torch.parallel.batch import (
 from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig, rollout
 from vehicle_control_tpu_torch.solvers.backward_kernel_fm import BackwardKernelFM, backward_plain
 from vehicle_control_tpu_torch.solvers.derivs_kernel_fm import DerivsKernelFM, derivs_plain
+from vehicle_control_tpu_torch.solvers.rollout_kernel import LinesearchKernelAoS
 from vehicle_control_tpu_torch.solvers.rollout_kernel_fm import (
     LinesearchKernelFM,
     linesearch_costs_plain,
@@ -66,11 +69,15 @@ def _config(rel):
     return load_config(f"{project_root()}/configs/{rel}")
 
 
-def _problem(device="cpu", dtype=torch.float64):
-    cfg = dict(_config("controllers/singletrack.yaml"), obstacles=False, horizon=H)
+def _problem(device="cpu", dtype=torch.float64, tail="none"):
+    if tail == "pm":  # the cascade at N=4 + M=4 stages
+        cfg = dict(_config("controllers/cascaded.yaml"), obstacles=False, horizon=H // 2,
+                   horizon_pm=H // 2)
+    else:
+        cfg = dict(_config("controllers/singletrack.yaml"), obstacles=False, horizon=H)
     track = Track(_config("environment/ippodromo.yaml"))
     return track, problems.build_cascaded_problem(
-        _config("models/dynamic_car.yaml"), track, cfg, "none", dtype, device
+        _config("models/dynamic_car.yaml"), track, cfg, tail, dtype, device
     )
 
 
@@ -81,10 +88,9 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def inputs(cuda):
+def _inputs(cuda, tail):
     """(family, X, U, lam, mu, rho, curv, ds, z0, kff, Kfb) as f32 on the card."""
-    track, prob = _problem()
+    track, prob = _problem(tail=tail)
     rng = np.random.default_rng(0)
     states = torch.as_tensor(initial_states(track.length, B, rng))
     carry = aligned_carry(prob, states)
@@ -100,6 +106,16 @@ def inputs(cuda):
     mu, rho = torch.full((B,), 10.0), torch.ones(B)
     arrays = (X, U, lam, mu, rho, params.curvature, params.ds, z0, kff, Kfb)
     return (prob.family,) + tuple(a.to(cuda, torch.float32).contiguous() for a in arrays)
+
+
+@pytest.fixture(scope="module")
+def inputs(cuda):
+    return _inputs(cuda, "none")
+
+
+@pytest.fixture(scope="module")
+def pm_inputs(cuda):
+    return _inputs(cuda, "pm")
 
 
 @pytest.mark.cuda
@@ -175,6 +191,83 @@ def test_closed_loop_step_launches_both_kernels(cuda):
     config picks: kernels 1 + 2 by default, kernels 1 + 4 on the
     derivatives route, kernel 3 alone on the whole-solve route."""
     track, prob = _problem(cuda, torch.float32)
+    transition, _ = dc.make_transitions(
+        dc.DynamicCarParams.from_config(_config("models/dynamic_car.yaml"))
+    )
+    per_solve = BUDGET["n_outer"] * BUDGET["n_inner"] + BUDGET["n_polish"]
+    states = torch.as_tensor(initial_states(track.length, 256, np.random.default_rng(0)),
+                             dtype=torch.float32, device=cuda)
+    routes = (({}, [per_solve, per_solve]), (dict(use_derivs_kernel=True), [per_solve, per_solve]),
+              (dict(use_solve_kernel=True), [1]))
+    for flags, launches in routes:
+        step = make_batched_racing_step(
+            prob, ALILQRConfig(**BUDGET, **flags), transition,
+            track.data.to(cuda, torch.float32), 0.05, 4,
+        )
+        carry, nxt, action, info = step(aligned_carry(prob, states), states)
+        assert [k.launches for k in step.kernels] == launches, flags
+        assert torch.isfinite(nxt).all() and torch.isfinite(action).all()
+        assert carry.X_pred.shape == (256, H, 10) and info.converged.shape == (256,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["none", "pm"])
+def test_aos_kernel_matches_kernel1(inputs, pm_inputs, family):
+    """Kernel 5 reads the (B, H, F) tensors in place and gives kernel 1's costs."""
+    fam, X, U, lam, mu, _, curv, ds, z0, kff, Kfb = inputs if family == "none" else pm_inputs
+    args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    aos, ls = LinesearchKernelAoS(fam, ALPHAS), LinesearchKernelFM(fam, ALPHAS)
+    got, ref = aos(*args), ls(*args)
+    assert aos.launches == 1 and got.shape == (len(ALPHAS), B)
+    torch.testing.assert_close(torch.isposinf(got), torch.isposinf(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cascade_kernels_match_plain(pm_inputs):
+    """Kernels 1, 2 and 4 on the cascade against their plain versions."""
+    fam, X, U, lam, mu, rho, curv, ds, z0, kff, Kfb = pm_inputs
+    ls = LinesearchKernelFM(fam, ALPHAS)
+    args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    got, ref = ls(*args), linesearch_costs_plain(fam, ALPHAS, *args)
+    torch.testing.assert_close(torch.isposinf(got), torch.isposinf(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-4, atol=1e-4)
+    bw = BackwardKernelFM(fam)
+    got = bw(X, U, lam, mu, rho, curv, ds)
+    ref = backward_plain(fam, X, U, lam, mu, rho, curv, ds)
+    torch.testing.assert_close(got[4], ref[4])
+    for name, a, b in zip(("kff", "Kfb", "dV1", "dV2"), got[:4], ref[:4]):
+        assert _lane_err(a, b).max().item() < 1e-4, name
+    dk = DerivsKernelFM(fam)
+    for name, a, b in zip(("g", "Hw", "J"), dk(X, U, lam, mu, curv, ds),
+                          derivs_plain(fam, X, U, lam, mu, curv, ds)):
+        assert _lane_err(a, b).max().item() < 1e-4, name
+    assert (ls.launches, bw.launches, dk.launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cascade_solve_kernel_matches_plain(pm_inputs):
+    """Kernel 3 on the cascade: one iteration at rho0 = 1 against the plain
+    version, and the early exit and alpha=1 fast path change no bit."""
+    fam, _, U, lam, _, _, curv, ds, z0 = pm_inputs[:9]
+    got = SolveKernelFM(fam, WELL)(z0, U, lam, curv, ds, trace=True)
+    ref = solve_plain(fam, WELL, z0, U, lam, curv, ds, trace=True)
+    torch.testing.assert_close(got[5], ref[5])
+    torch.testing.assert_close(got[6], ref[6])
+    torch.testing.assert_close(got[7]["first_alpha"], ref[7]["first_alpha"], rtol=0, atol=0)
+    for name, a, b in zip(("X", "U", "lam"), got[:3], ref[:3]):
+        assert _lane_err(a[2:], b[2:]).max().item() < 1e-4, name
+    outs = [SolveKernelFM(fam, ALILQRConfig(**BUDGET, early_exit=ee, ls_fast_path=fast))(
+        z0, U, lam, curv, ds) for ee, fast in ((True, False), (False, True))]
+    assert all(_same_bits(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.cuda
+def test_cascade_closed_loop_routes(cuda):
+    """One f32 closed-loop step of the cascade on the card on each route."""
+    track, prob = _problem(cuda, torch.float32, "pm")
     transition, _ = dc.make_transitions(
         dc.DynamicCarParams.from_config(_config("models/dynamic_car.yaml"))
     )

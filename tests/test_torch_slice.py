@@ -154,6 +154,7 @@ def test_port_imports_no_jax():
         "vehicle_control_tpu_torch." + m
         for m in (
             "parallel.batch", "utils.convert", "utils.config", "utils.device",
+            "models.point_mass", "solvers.rollout_kernel",
             "solvers.cuda_lib", "solvers.rollout_kernel_fm", "solvers.backward_kernel_fm",
             "solvers.solve_kernel_fm", "solvers.derivs_kernel_fm", "solvers.al_ilqr",
             "solvers.riccati", "controllers.mpc.controllers", "controllers.mpc.problems",

@@ -50,6 +50,16 @@ def singletrack_cfg(horizon, loader=load_config):
     return cfg
 
 
+def cascaded_cfg(horizon, horizon_pm, loader=load_config):
+    """The paper's cascade (cascaded.yaml) cut to N single-track and M
+    point-mass stages."""
+    cfg = loader(config_path("controllers/cascaded.yaml"))
+    cfg["obstacles"] = False
+    cfg["horizon"] = horizon
+    cfg["horizon_pm"] = horizon_pm
+    return cfg
+
+
 _TRACKS = {}
 
 
@@ -64,16 +74,20 @@ def tracks(name="ippodromo"):
     return _TRACKS[name]
 
 
-def problems(horizon, dtype_j=jnp.float64, dtype_t=F64):
-    """The singletrack problem at ``horizon`` on both sides."""
+def problems(horizon, dtype_j=jnp.float64, dtype_t=F64, horizon_pm=0):
+    """The singletrack problem at ``horizon`` on both sides or, with
+    ``horizon_pm``, the cascade of ``horizon`` + ``horizon_pm`` stages."""
     jt, tt = tracks()
+    if horizon_pm:
+        tail, cfgs = "pm", (cascaded_cfg(horizon, horizon_pm, j_load_config),
+                            cascaded_cfg(horizon, horizon_pm))
+    else:
+        tail, cfgs = "none", (singletrack_cfg(horizon, j_load_config), singletrack_cfg(horizon))
     jprob = jproblems.build_cascaded_problem(
-        j_load_config(config_path("models/dynamic_car.yaml")), jt,
-        singletrack_cfg(horizon, j_load_config), "none", dtype_j,
+        j_load_config(config_path("models/dynamic_car.yaml")), jt, cfgs[0], tail, dtype_j,
     )
     tprob = tproblems.build_cascaded_problem(
-        load_config(config_path("models/dynamic_car.yaml")), tt,
-        singletrack_cfg(horizon), "none", dtype_t, "cpu",
+        load_config(config_path("models/dynamic_car.yaml")), tt, cfgs[1], tail, dtype_t, "cpu",
     )
     return jprob, tprob
 
@@ -134,32 +148,18 @@ def linesearch_oracle(jprob, alphas, Xref, Uref, kff, Kfb, lam, mu, params, z0):
     return np.asarray(f(jnp.asarray(alphas), *args, pv, jnp.asarray(z0))).T
 
 
-def backward_oracle(jprob, X, U, lam, mu, rho, params):
-    """riccati_backward over jacfwd stage derivatives, per scenario."""
-    fns, H, nz = jprob.fns, jprob.horizon, jprob.nz
-    ns = jnp.arange(H)
+def backward_oracle(jprob, X, U, lam, mu, rho, params, derivs=None):
+    """riccati_backward over jacfwd stage derivatives (``derivs_oracle``'s,
+    or ``derivs`` where the caller has them), per scenario."""
+    nz = jprob.nz
+    g, Hw, J = derivs_oracle(jprob, X, U, lam, mu, params) if derivs is None else derivs
 
-    def stage_derivs(n, z, u, lam_n, m, pp):
-        w = jnp.concatenate([z, u])
+    def one(g1, Hw1, J1, rho1):
+        Hs = 0.5 * (Hw1 + jnp.swapaxes(Hw1, -1, -2))
+        return j_riccati(g1[:, :nz], g1[:, nz:], Hs[:, :nz, :nz], Hs[:, nz:, :nz],
+                         Hs[:, nz:, nz:], J1[:, :, :nz], J1[:, :, nz:], rho1, 1)
 
-        def cost_fn(ww):
-            c = fns.constraints(n, ww[:nz], ww[nz:], pp)
-            return fns.stage_cost(n, ww[:nz], ww[nz:], pp) + _al_penalty(c, lam_n, m)
-
-        g = jax.grad(cost_fn)(w)
-        Hw = jax.jacfwd(jax.grad(cost_fn))(w)
-        Hw = 0.5 * (Hw + Hw.T)
-        J = jax.jacfwd(lambda ww: fns.dynamics(n, ww[:nz], ww[nz:], pp))(w)
-        return (g[:nz], g[nz:], Hw[:nz, :nz], Hw[nz:, :nz], Hw[nz:, nz:], J[:, :nz], J[:, nz:])
-
-    def one(X1, U1, lam1, mu1, rho1, k1, ds1):
-        pp = jproblems.HorizonParams(k1, ds1)
-        d = jax.vmap(lambda n, z, u, l: stage_derivs(n, z, u, l, mu1, pp))(ns, X1, U1, lam1)
-        return j_riccati(*d, rho1, 1)
-
-    out = jax.jit(jax.vmap(one))(
-        *[jnp.asarray(a) for a in (X, U, lam, mu, rho, params.curvature, params.ds)]
-    )
+    out = jax.jit(jax.vmap(one))(*[jnp.asarray(a) for a in (g, Hw, J, rho)])
     return tuple(np.asarray(a) for a in out)
 
 

@@ -2,15 +2,18 @@
 
 ``build_cascaded_problem`` turns the controller YAML into batched problem
 callbacks for the AL-iLQR solver.  The port covers ``tail="none"``, the
-single-track family (``configs/controllers/singletrack.yaml``); the other
-tails and obstacles raise ``NotImplementedError``.
+single-track family (``configs/controllers/singletrack.yaml``), and
+``tail="pm"``, the paper's cascade of N single-track stages and M
+point-mass stages (``configs/controllers/cascaded.yaml``); the kinematic
+tail and obstacles raise ``NotImplementedError``.
 
 The callbacks are the family's field-wise closures (solvers.fm_family)
 applied to batch-first tensors: the solver state is z = [x(8), u_prev(2)]
-so the Fx slew cost is a Markov stage cost, forces are solved in kN
+so the slew costs are Markov stage costs, forces are solved in kN
 (FORCE_SCALE), the dynamics are the regularized spatial RK4 step with the
-steering stop (``_sat_col``) and the softplus-floored 1/s_dot, and the
-stage-0 state-only constraint rows are masked.
+steering stop (``_sat_col``) and the softplus-floored 1/s_dot (then the
+seam and the point-mass Euler step for ``tail="pm"``), and the stage-0
+state-only constraint rows are masked.
 """
 
 from __future__ import annotations
@@ -58,15 +61,19 @@ def build_cascaded_problem(
     car_config, track: "track_mod.Track", cfg, tail: str = "none",
     dtype=torch.float64, device=DEFAULT_DEVICE,
 ) -> MPCProblem:
-    """Single-track MPC problem on ``device`` in ``dtype`` (tail="none").
+    """The cascaded MPC problem (``tail`` "none" or "pm") on ``device`` in
+    ``dtype``.
 
     The card is the default; without CUDA that raises, and the caller asks
     for ``device="cpu"`` (where the kernels' plain versions run)."""
     device = require_device(device)
-    family = build_cascaded_family(car_config, cfg, tail)  # raises past tail="none"
+    family = build_cascaded_family(car_config, cfg, tail)  # raises past "none"/"pm"
     track_data = track.data.to(device=device, dtype=dtype)
     p = family.params
-    N = H = family.H
+    H, N = family.H, family.N
+    M = H - N
+    pm = family.tail == "pm"
+    ds_pm = float(cfg["ds_pm"]) if pm else 0.0
     nz, nu, nc = family.NZ, family.NU, family.NC
     mpc_dt = float(cfg["mpc_dt"])
     kw = dict(dtype=dtype, device=device)
@@ -90,15 +97,25 @@ def build_cascaded_problem(
         )
 
     u_scale = torch.ones(H, nu, **kw)
-    u_scale[:, 0] = FORCE_SCALE
+    u_scale[:, 0] = FORCE_SCALE  # Fx in kN at every stage
+    u_scale[N:, 1] = FORCE_SCALE  # Fy in kN on the point-mass stages
 
     def init_horizon(state0, X_prev, U_prev):
-        """Warm-started ds/curvature horizon from the previous prediction."""
+        """Warm-started ds/curvature horizon from the previous prediction:
+        single-track steps of mpc_dt at the predicted speed, then point-mass
+        steps of ds_pm."""
         ds_st = mpc_dt * X_prev[:, :N, 0]
         s_traj = torch.cumsum(ds_st, dim=1) - ds_st[:, :1] + state0[:, 4:5]
         k_st = track_mod.curvature(track_data, s_traj)
         z0 = torch.cat([state0, state0.new_zeros(state0.shape[0], 2)], dim=1)
-        return HorizonParams(curvature=k_st, ds=ds_st), z0
+        if not pm:
+            return HorizonParams(curvature=k_st, ds=ds_st), z0
+        ds_tail = torch.full((state0.shape[0], M), ds_pm, dtype=ds_st.dtype, device=ds_st.device)
+        s_tail = torch.cumsum(ds_tail, dim=1) - ds_st[:, -1:] + s_traj[:, -1:]
+        k_tail = track_mod.curvature(track_data, s_tail)
+        params = HorizonParams(curvature=torch.cat([k_st, k_tail], 1),
+                               ds=torch.cat([ds_st, ds_tail], 1))
+        return params, z0
 
     def initial_prediction():
         X0 = torch.ones(H, nz, **kw)
@@ -107,19 +124,27 @@ def build_cascaded_problem(
 
     def warm_start(state0):
         """Speed-consistent cold-start guess for scenarios dropped mid-track:
-        Ux held, Fx = drag."""
+        Ux held, Fx = drag, and on the point-mass stages the curvature
+        feed-forward Fy = m Ux^2 k."""
         Ux0 = torch.clamp_min(state0[:, 0], 1.0)
         X0 = torch.ones(state0.shape[0], H, nz, **kw)
         X0[:, :, 0] = Ux0[:, None]
         U0 = torch.zeros(state0.shape[0], H, nu, **kw)
         U0[:, :, 0] = ((p.Frr + p.Cd * Ux0**2) / FORCE_SCALE)[:, None]
+        if pm:
+            steps = torch.arange(N, **kw)
+            s_st_last = state0[:, 4] + mpc_dt * Ux0 * steps[-1]
+            s_tail = s_st_last[:, None] + ds_pm * torch.arange(1, M + 1, **kw)
+            k_tail = track_mod.curvature(track_data, s_tail)
+            U0[:, N:, 1] = p.m * Ux0[:, None] ** 2 * k_tail / FORCE_SCALE
         return X0, U0
 
+    # the rollout control boxes, stage by stage (solver units)
     u_lo = torch.empty(H, nu, **kw)
     u_hi = torch.empty(H, nu, **kw)
-    for j in range(nu):
-        lo, hi = family.u_box(0, j)
-        u_lo[:, j], u_hi[:, j] = lo, hi
+    for n in range(H):
+        for j in range(nu):
+            u_lo[n, j], u_hi[n, j] = family.u_box(n, j)
 
     fns = OCPFunctions(dynamics, stage_cost, constraints)
     return MPCProblem(

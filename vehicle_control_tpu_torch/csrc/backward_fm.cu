@@ -1,5 +1,5 @@
 // Kernel 2: fused backward pass (stage derivatives + Riccati) of the
-// single-track family.
+// cascaded family (tail="none" or tail="pm").
 //
 // Replaces the Pallas TPU kernel build_backward_kernel_fm
 // (vehicle_control_tpu/solvers/backward_kernel_fm.py).  For each scenario it
@@ -12,8 +12,10 @@
 // backward_plain.
 //
 // What bounds it on an H100: a serial chain of H stages per scenario, each
-// ~40k dependent f32 FMAs (the 12-input gradient jet, the 8-column RK4
-// Jacobian jet, the 5x5 second-order jet and the 10x10 Riccati products),
+// ~40k dependent f32 FMAs on a single-track stage (the 12-input gradient
+// jet, the 8-column RK4 Jacobian jet, the 5x5 second-order jet and the 10x10
+// Riccati products; a point-mass stage needs only the gradient jet, a
+// 5-column Euler jet and the Riccati products),
 // with the value function (Vx: 10, Vxx: 100 floats) and the per-stage A,
 // Qxx and Qux far beyond 255 registers: it is latency-bound and spills to
 // local memory (L1-resident).
@@ -22,12 +24,16 @@
 // permutes (B, H, F) with .contiguous()), the derivative tensors never
 // leave the thread.  The known sparsity of the Jacobian (columns s, t and
 // the stash are trivial) is not exploited yet.
+#if defined(__CUDACC__)
 #include <cuda_runtime.h>
+#endif
 #include <string.h>
 
 #include "singletrack.cuh"
 
 using namespace vct;
+
+#if defined(__CUDACC__)
 
 __global__ void __launch_bounds__(128) backward_fm_kernel(
     STParams p, const float* __restrict__ x, const float* __restrict__ u,
@@ -51,3 +57,5 @@ extern "C" int vct_backward_fm(const float* params, const float* x, const float*
       p, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B, H);
   return (int)cudaGetLastError();
 }
+
+#endif

@@ -1,11 +1,14 @@
-// Kernel 1: line-search costs of the single-track family.
+// Kernel 1: line-search costs of the cascaded family (tail="none" or
+// tail="pm").
 //
 // Replaces the Pallas TPU kernel build_linesearch_kernel_fm
 // (vehicle_control_tpu/solvers/rollout_kernel_fm.py).  For each of A step
 // sizes and each scenario it rolls out u = clip(Uref + alpha*kff +
 // Kfb (z - Xref), u_box) over the horizon, summing the AL stage cost and
-// stepping the RK4 dynamics; a next state that is non-finite or reaches
-// |z| >= 1e7 makes the cost +inf.  Plain version: linesearch_costs_plain.
+// stepping the dynamics of each stage's kind (the single-track RK4 step,
+// the seam, the point-mass Euler step); a next state that is non-finite or
+// reaches |z| >= 1e7 makes the cost +inf.  Plain version:
+// linesearch_costs_plain.
 //
 // What bounds it on an H100: A x B independent rollouts, each a serial chain
 // of H stages of ~1.5k dependent f32 operations (cost, constraints and four
@@ -17,12 +20,18 @@
 // consecutive floats; the wrapper permutes (B, H, F) inputs into that
 // layout with .contiguous().  Step sizes, car parameters, weights and boxes
 // are kernel arguments, not literals.  The ragged last block is masked.
+// The lane body is plain C++ (VCT_HD), so a host compiler builds it for
+// rehearsal; the kernel and its launcher are CUDA only.
+#if defined(__CUDACC__)
 #include <cuda_runtime.h>
+#endif
 #include <string.h>
 
 #include "singletrack.cuh"
 
 using namespace vct;
+
+#if defined(__CUDACC__)
 
 struct Alphas {
   float v[MAX_ALPHA];
@@ -62,3 +71,5 @@ extern "C" int vct_linesearch_fm(const float* params, const float* alphas, int A
       p, al, xref, uref, kff, kfb, lam, mu, curv, ds, z0, costs, B, H);
   return (int)cudaGetLastError();
 }
+
+#endif

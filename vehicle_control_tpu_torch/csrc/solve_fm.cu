@@ -1,5 +1,5 @@
-// Kernel 3: the whole AL-iLQR solve of the single-track family in one
-// launch.
+// Kernel 3: the whole AL-iLQR solve of the cascaded family (tail="none" or
+// tail="pm") in one launch.
 //
 // Replaces the Pallas TPU kernel build_solve_kernel_fm
 // (vehicle_control_tpu/solvers/solve_kernel_fm.py).  Per scenario: clamp U,
@@ -14,12 +14,16 @@
 // raw cost and the largest violation.  Plain version: solve_plain.
 //
 // What bounds it on an H100: per scenario a serial chain of inner
-// iterations, each a backward pass (30 stages of ~40k dependent f32
-// operations, spilled to local memory, as in kernel 2) plus A candidate
-// rollouts and a re-roll (30 stages of ~1.5k operations each): latency and
-// instruction issue, not memory.  The whole state of a lane (X, U, lam in
-// the output buffers, kff and kfb in a scratch tensor from the wrapper:
-// 30 x 44 floats, 21.6 MB at B=4096) stays in the 50 MB L2.
+// iterations, each a backward pass (H stages; a single-track stage ~40k
+// dependent f32 operations, spilled to local memory, as in kernel 2, a
+// point-mass stage far fewer) plus A candidate rollouts and a re-roll
+// (~1.5k operations per single-track stage): latency and instruction
+// issue, not memory.  The whole state of a lane lives in the output
+// buffers (X, U, lam) and a scratch tensor from the wrapper (kff and kfb:
+// H x 22 floats): 44 floats per stage, 21.6 MB at B=4096, H=30, inside the
+// 50 MB L2, and 43.3 MB at H=60 (the cascade), which with its inputs no
+// longer fits.  Every stage loop runs one static segment at a time
+// (for_each_stage), so each stage calls the device functions of its kind.
 // Design, correctness first: one thread per scenario, blocks of 32 (B=4096
 // gives 128 blocks for 132 SMs), struct-of-arrays (stage, field, scenario)
 // so a warp reads 32 consecutive floats.  Where the TPU kernel leaves its
@@ -68,17 +72,23 @@ VCT_HD float nan_to_num(float x) {
   return x;
 }
 
+VCT_HD void load_w(int n, int b, int B, const float* X, const float* U, float wf[NW]) {
+  for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
+  for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
+}
+
 // the AL cost of the lane's current (X, U) at penalty mu
 VCT_HD float total_al_cost(int b, int B, int H, float mu, const float* X, const float* U,
                            const float* lam, const float* ds, const STParams& p) {
   float acc = 0.f;
-  for (int n = 0; n < H; ++n) {
+  const float dss = ds[seam_stage(p) * B + b];
+  for_each_stage(H, p, [&](int n, auto kc) {
     float wf[NW], lamv[NC];
-    for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
-    for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
+    load_w(n, b, B, X, U, wf);
     for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-    acc = acc + al_cost(n, H, wf, lamv, mu, ds[n * B + b], ds[(n > 0 ? n - 1 : 0) * B + b], p);
-  }
+    acc = acc + al_cost<decltype(kc)::value>(n, H, wf, lamv, mu, ds[n * B + b],
+                                             ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
+  });
   return acc;
 }
 
@@ -93,12 +103,13 @@ VCT_HD_NOINLINE void sweep_candidates(int b, int B, int H, int a0, int a1, float
     for (int i = 0; i < NZ; ++i) zs[a][i] = z0[i * B + b];
     accs[a] = 0.f;
   }
-  for (int n = 0; n < H; ++n) {
+  for_each_stage(H, p, [&](int n, auto kc) {
     Stage s;
-    load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, s);
-    for (int a = a0; a < a1; ++a) candidate_stage(n, H, cfg.alphas[a], mu, s, p, zs[a], accs[a]);
-  }
-  for (int a = a0; a < a1; ++a) costs[a] = finite(accs[a]) ? accs[a] : INFINITY;
+    load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, p, s);
+    for (int a = a0; a < a1; ++a)
+      candidate_stage<decltype(kc)::value>(n, H, cfg.alphas[a], mu, s, p, zs[a], accs[a]);
+  });
+  for (int a = a0; a < a1; ++a) costs[a] = vct::finite(accs[a]) ? accs[a] : INFINITY;
 }
 
 // roll the chosen step and write it into X and U, in place: stage n reads
@@ -108,19 +119,19 @@ VCT_HD void reroll(int b, int B, int H, float alpha, const float* z0, float* X, 
                    const float* ds, const STParams& p) {
   float z[NZ];
   for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
-  for (int n = 0; n < H; ++n) {
+  for_each_stage(H, p, [&](int n, auto kc) {
     Stage s;
-    load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, s);
+    load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, p, s);
     float wf[NW], nxt[NZ];
-    feedback_u(alpha, z, s, p, wf + NZ);
+    feedback_u(alpha, z, s, wf + NZ);
     for (int i = 0; i < NZ; ++i) wf[i] = z[i];
-    dyn(wf, s.kv, s.dsn, p, nxt);
+    dyn<decltype(kc)::value>(wf, s.kv, s.dsn, p, nxt);
     for (int i = 0; i < NZ; ++i) {
       X[at2(n, i, NZ, b, B)] = z[i];
       z[i] = nxt[i];
     }
     for (int j = 0; j < NU; ++j) U[at2(n, j, NU, b, B)] = wf[NZ + j];
-  }
+  });
 }
 
 // Armijo on the quadratic model, unless the model's predicted decrease
@@ -131,7 +142,7 @@ VCT_HD bool armijo_ok(const SolveConfig& cfg, int a, float cost_a, float cost_al
   float improvement = cost_al - cost_a;
   bool model_sane = expected <= fabsf(cost_al) + 1.f;
   bool ok = !model_sane || improvement > cfg.armijo * vmax(expected, 0.f);
-  return ok && finite(cost_a) && improvement > 0.f && !fail;
+  return ok && vct::finite(cost_a) && improvement > 0.f && !fail;
 }
 
 // up to `length` inner iterations at penalty mu
@@ -201,8 +212,9 @@ VCT_HD void solve_lane(int b, int B, int H, const SolveConfig& cfg, const STPara
                        const float* z0, const float* u0, const float* lam0, const float* curv,
                        const float* ds, float* X, float* U, float* lam, float* kff, float* kfb,
                        float* stats) {
-  const float lo[NU] = {p.u0_lo, p.u1_lo}, hi[NU] = {p.u0_hi, p.u1_hi};
   for (int n = 0; n < H; ++n) {
+    float lo[NU], hi[NU];
+    stage_box(n, p, lo, hi);
     for (int j = 0; j < NU; ++j)
       U[at2(n, j, NU, b, B)] = Clip(u0[at2(n, j, NU, b, B)], lo[j], hi[j]);
     for (int j = 0; j < NC; ++j) lam[at2(n, j, NC, b, B)] = lam0[at2(n, j, NC, b, B)];
@@ -210,48 +222,48 @@ VCT_HD void solve_lane(int b, int B, int H, const SolveConfig& cfg, const STPara
   {  // warm rollout: a divergent start must not poison the derivatives
     float z[NZ];
     for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
-    for (int n = 0; n < H; ++n) {
+    for_each_stage(H, p, [&](int n, auto kc) {
       float wf[NW], nxt[NZ];
       for (int i = 0; i < NZ; ++i) {
         X[at2(n, i, NZ, b, B)] = nan_to_num(z[i]);
         wf[i] = z[i];
       }
       for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
-      dyn(wf, curv[n * B + b], ds[n * B + b], p, nxt);
+      dyn<decltype(kc)::value>(wf, curv[n * B + b], ds[n * B + b], p, nxt);
       for (int i = 0; i < NZ; ++i) z[i] = nxt[i];
-    }
+    });
   }
   LaneState st = {cfg.rho0, 0.f, 0, 0, true};
   for (int k = 0; k < cfg.n_outer; ++k) {
     float mu = cfg.mus[k];
     run_inner(b, B, H, mu, cfg.n_inner, cfg, z0, X, U, lam, kff, kfb, curv, ds, p, st);
-    for (int n = 0; n < H; ++n) {  // multipliers at this outer iteration's penalty
+    for_each_stage(H, p, [&](int n, auto kc) {  // multipliers at this penalty
       float wf[NW], c[NC];
-      for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
-      for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
-      stage_constraints(n, wf, p, c);
+      load_w(n, b, B, X, U, wf);
+      stage_constraints<decltype(kc)::value>(n, wf, p, c);
       for (int j = 0; j < NC; ++j) {
         int at = at2(n, j, NC, b, B);
         lam[at] = vmax(0.f, lam[at] + mu * c[j]);
       }
-    }
+    });
   }
   if (cfg.n_polish > 0)
     run_inner(b, B, H, cfg.mus[cfg.n_outer], cfg.n_polish, cfg, z0, X, U, lam, kff, kfb, curv,
               ds, p, st);
   float cost = 0.f, viol = 0.f;
-  for (int n = 0; n < H; ++n) {
+  const float dss = ds[seam_stage(p) * B + b];
+  for_each_stage(H, p, [&](int n, auto kc) {
+    constexpr int K = decltype(kc)::value;
     float wf[NW], c[NC];
-    for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
-    for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
-    cost = cost + stage_cost(n, H, wf, ds[n * B + b], ds[(n > 0 ? n - 1 : 0) * B + b], p);
-    stage_constraints(n, wf, p, c);
+    load_w(n, b, B, X, U, wf);
+    cost = cost + stage_cost<K>(n, H, wf, ds[n * B + b], ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
+    stage_constraints<K>(n, wf, p, c);
     for (int j = 0; j < NC; ++j) viol = vmax(viol, c[j]);
-  }
+  });
   viol = vmax(viol, 0.f);
   stats[b] = cost;
   stats[B + b] = viol;
-  stats[2 * B + b] = (viol < cfg.tol_con && finite(cost)) ? 1.f : 0.f;
+  stats[2 * B + b] = (viol < cfg.tol_con && vct::finite(cost)) ? 1.f : 0.f;
   stats[3 * B + b] = (float)st.n_acc;
   stats[4 * B + b] = st.first_alpha;
   stats[5 * B + b] = (float)st.runs;

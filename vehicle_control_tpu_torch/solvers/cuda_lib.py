@@ -90,6 +90,12 @@ PARAM_FIELDS = (
     "w_min", "w_max",
     # rollout control boxes (solver units)
     "u0_lo", "u0_hi", "u1_lo", "u1_hi",
+    # the point-mass tail (zero for the single-track family): weights,
+    # bounds and the Fy box of the point-mass stages
+    "w_dev_pm", "w_Fy", "w_switch_F", "V_min", "ey_min_pm", "ey_max_pm",
+    "u1_lo_pm", "u1_hi_pm",
+    # the horizon's split: N single-track stages, pm = 1 for the tail
+    "N", "pm",
 )
 
 
@@ -155,8 +161,9 @@ def load_library() -> ctypes.CDLL:
     lib.vct_error_string.argtypes = [I]
     lib.vct_error_string.restype = ctypes.c_char_p
     # (params, alphas, A, xref, uref, kff, kfb, lam, mu, curv, ds, z0, costs, B, H, stream)
-    lib.vct_linesearch_fm.argtypes = [P, P, I] + [P] * 10 + [I, I, P]
-    lib.vct_linesearch_fm.restype = I
+    for fn in (lib.vct_linesearch_fm, lib.vct_linesearch_aos):
+        fn.argtypes = [P, P, I] + [P] * 10 + [I, I, P]
+        fn.restype = I
     # (params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B, H, stream)
     lib.vct_backward_fm.argtypes = [P] + [P] * 11 + [I, I, P]
     lib.vct_backward_fm.restype = I
@@ -184,6 +191,7 @@ def family_params(family) -> np.ndarray:
     """The family's car parameters, weights and bounds in STParams order (f32)."""
     p, w = family.params, family.weights
     ci, cs = family.input_constraints, family.state_constraints
+    ct = family.tail_constraints or {}
     vals = dict(
         m=p.m, Izz=p.Izz, a=p.a, b=p.b, l=p.l, h=p.h, eps=p.eps, Peng=p.Peng,
         Xdf=p.Xdf, Xdr=p.Xdr, Xbf=p.Xbf, Xbr=p.Xbr, Caf=p.Caf, Car=p.Car,
@@ -198,6 +206,15 @@ def family_params(family) -> np.ndarray:
     (vals["u0_lo"], vals["u0_hi"]), (vals["u1_lo"], vals["u1_hi"]) = (
         family.u_box(0, 0), family.u_box(0, 1)
     )
+    pm = family.tail == "pm"
+    vals.update(
+        w_dev_pm=w.get("deviation_pm", 0.0) if pm else 0.0,
+        w_Fy=w.get("Fy", 0.0) if pm else 0.0,
+        w_switch_F=w.get("switch_F", 0.0) if pm else 0.0,
+        V_min=ct.get("V_min", 0.0), ey_min_pm=ct.get("ey_min", 0.0),
+        ey_max_pm=ct.get("ey_max", 0.0), N=family.N, pm=1.0 if pm else 0.0,
+    )
+    vals["u1_lo_pm"], vals["u1_hi_pm"] = family.u_box(family.H - 1, 1)
     return np.asarray([vals[k] for k in PARAM_FIELDS], np.float32)
 
 

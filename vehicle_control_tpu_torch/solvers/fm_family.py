@@ -1,27 +1,45 @@
 """Field-wise problem family (counterpart of vehicle_control_tpu/solvers/fm_family.py).
 
 A family is the one source of the AL stage cost, the dynamics and the
-control boxes that the solver, the two kernels' plain versions and the CUDA
+control boxes that the solver, the kernels' plain versions and the CUDA
 kernels (``csrc/singletrack.cuh``) compute.  Fields are per-scenario
 tensors; the stage index ``n`` is a Python int, so every stage-switched
 branch resolves when the closure runs.
 
-Only ``tail="none"`` (the single-track family, ``configs/controllers/
-singletrack.yaml``) is ported; the point-mass and kinematic tails, the
-obstacle barrier and the pure kinematic family come later.
+Two families are ported: ``tail="none"``, the single-track family
+(``configs/controllers/singletrack.yaml``, H = N stages), and
+``tail="pm"``, the paper's cascade (``configs/controllers/cascaded.yaml``):
+N single-track stages, then M point-mass stages, H = N + M.  The solver
+state is one padded z = [x(8), u_prev(2)] whose fields change meaning at
+the seam: stages n < N carry the single-track state (Ux, Uy, r, delta, s,
+ey, epsi, t) and the RK4 step; stage N-1 hands off to the point mass
+(``fm_singletrack.seam_fields``) and stashes the total lateral force in
+z[5]; stages n >= N carry (V, s, ey, epsi, t) and an explicit Euler step.
+Control 1 is the steer rate w before N and the lateral force Fy in kN from
+N on.  The kinematic tail, the obstacle barrier and the pure kinematic
+family come later.
 
 ``stage_derivs`` is the hand-derived twin of the JAX package's restructured
-exact derivatives (``_st_fast``), with no autograd in it:
+exact derivatives, with no autograd in it:
 
 * the full AL-cost gradient from first-order jets over the 12 stage
-  variables (JAX: one reverse-mode pass);
-* the dynamics Jacobian from first-order jets over the 8 columns the RK4
-  step reads, chained through the steering stop (JAX: the analytic
-  ``rk4_step_jac``); the s, t and previous-action columns are closed-form;
-* the nonquadratic Hessian block over (Ux, Uy, r, delta, u_Fx) - the slip
-  penalty plus the PHR penalty of constraint rows 3, 6, 7, 8 and 9 - from
-  second-order jets (JAX: forward-over-reverse);
-* every other Hessian entry in closed form.
+  variables (JAX: one reverse-mode pass), at every stage;
+* single-track stages n < N-1 (JAX ``_st_fast``): the dynamics Jacobian
+  from first-order jets over the 8 columns the RK4 step reads, chained
+  through the steering stop; the nonquadratic Hessian block over (Ux, Uy,
+  r, delta, u_Fx) - the slip penalty plus the PHR penalty of constraint
+  rows 3, 6, 7, 8 and 9 - from second-order jets; every other Hessian entry
+  in closed form;
+* the seam n = N-1 (JAX takes its generic forward-over-reverse path here):
+  the cost and constraints are a single-track stage's, so the gradient and
+  Hessian are too; the Jacobian comes from first-order jets through the
+  seam map over (Ux, Uy, r, delta, u_Fx), plus the unit columns of s, ey,
+  epsi and t;
+* point-mass stages n >= N (JAX ``_tail_fast``): the Jacobian from
+  first-order jets through the Euler step over (V, ey, epsi, u_Fx, u_Fy),
+  plus the unit columns of s and t; the Hessian in closed form (boundary,
+  deviation, the V floor, the engine-power row, the Fx/Fy slew, the
+  switching cost at n = N and the terminal cost).
 """
 
 from __future__ import annotations
@@ -37,7 +55,12 @@ from vehicle_control_tpu_torch.utils.jet import Jet
 
 FORCE_SCALE = fm.FORCE_SCALE
 NONQUAD_ROWS = (3, 6, 7, 8, 9)  # constraint rows in the nonquadratic block
-VIDX = (0, 1, 2, 3, 10)  # its variables: Ux, Uy, r, delta, u_Fx
+VIDX = (0, 1, 2, 3, 10)  # its variables: Ux, Uy, r, delta, u_Fx; the seam map reads the same
+PM_COLS = (0, 2, 3, 10, 11)  # what the point-mass Euler step reads: V, ey, epsi, u_Fx, u_Fy
+# point-mass regularization (problems.build_cascaded_problem's tail): the
+# clamps V >= 0.5, |ey| <= 8, |epsi| <= 1.3, then the softplus-floored 1/s_dot
+PM_CLAMPS = {0: (0.5, 1e3), 2: (-8.0, 8.0), 3: (-1.3, 1.3)}
+TAIL_BOX = (-25.0, 25.0)  # Fy box in kN on the point-mass stages
 
 
 class FMFamily(NamedTuple):
@@ -45,13 +68,16 @@ class FMFamily(NamedTuple):
 
     ``wf`` everywhere is the tuple of NZ state fields followed by NU control
     fields (solver units); ``lam_read(j)`` and ``ds_read(i)`` read multiplier
-    and arc-step fields; ``kv`` is the stage curvature field.
+    and arc-step fields; ``kv`` is the stage curvature field.  ``N`` is the
+    number of single-track stages (``H`` for ``tail="none"``).
     """
 
     NZ: int
     NU: int
     NC: int
     H: int
+    N: int
+    tail: str
     al_cost: Callable  # (n, wf, lam_read, mu, kv, ds_read) -> cost field
     dyn: Callable  # (n, wf, kv, ds_read) -> tuple of NZ next-state fields
     u_box: Callable  # (n, j) -> (lo, hi) clamp bounds, solver units
@@ -64,44 +90,103 @@ class FMFamily(NamedTuple):
     weights: dict
     input_constraints: dict
     state_constraints: dict
+    tail_constraints: dict | None  # state_pm_constraints for tail="pm"
+
+
+def _active(x, dtype):
+    """The curvature factor of a PHR row, max(0, x)^2 / (2 mu) with x =
+    lam + mu c, along its constraint: 1 where x > 0, 0 where x < 0 and, at
+    the tie x = 0, the 0.5 x 0.5 = 0.25 that JAX's autodiff of the max gives
+    (and the second-order jets of the nonquadratic block give).  A control
+    clamped onto its box with a zero multiplier sits on that tie."""
+    return (x > 0.0).to(dtype) + 0.25 * (x == 0.0).to(dtype)
+
+
+def pm_prime(x5, Fx, Fy, k, p):
+    """Point-mass d(state)/ds of the clamped state (V, s, ey, epsi, t), with
+    the softplus-floored 1/s_dot; forces in N."""
+    x5 = list(x5)
+    for i, (lo, hi) in PM_CLAMPS.items():
+        x5[i] = J.clip(x5[i], lo, hi)
+    V, s, ey, epsi, t = x5
+    V_dot = (Fx - (p.Frr + p.Cd * V**2)) / p.m
+    s_dot = (V * J.cos(epsi)) / (1.0 - k * ey)
+    ey_dot = V * J.sin(epsi)
+    V_safe = J.where(torch.abs(J.val(V)) > 1e-3, V, 1e-3)
+    epsi_dot = Fy / (p.m * V_safe) - k * s_dot
+    inv = 1.0 / (fm.FLOOR + J.softplus0(fm.BETA * (s_dot - fm.FLOOR)) / fm.BETA)
+    return [V_dot * inv, torch.ones_like(J.val(s_dot)), ey_dot * inv, epsi_dot * inv, inv]
+
+
+def pm_step(x5, Fx, Fy, k, h, p):
+    """Explicit Euler step of ``pm_prime`` from the raw state."""
+    return [a + h * b for a, b in zip(x5, pm_prime(x5, Fx, Fy, k, p))]
 
 
 def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
-    """Field-wise twin of problems.build_cascaded_problem (tail="none")."""
+    """Field-wise twin of problems.build_cascaded_problem (tail "none" or "pm")."""
     N = int(cfg["horizon"])
-    M = int(cfg.get("horizon_pm", 0) or 0) if tail == "pm" else 0
-    if tail == "kc":
-        M = int(cfg["horizon_kc"])
+    M = int(cfg["horizon_pm"]) if tail == "pm" else 0
+    if tail not in ("none", "pm") or bool(cfg.get("obstacles", False)):
+        raise NotImplementedError(
+            "the torch port covers the single-track family and the point-mass "
+            "cascade without obstacles (tail='none', 'pm'); the obstacle barrier "
+            "and then the kinematic tail (tail='kc') are the next slices of the port"
+        )
     if M == 0:
         tail = "none"
-    if tail != "none" or bool(cfg.get("obstacles", False)):
-        raise NotImplementedError(
-            "the torch port covers the single-track family without obstacles "
-            "(tail='none'); the pm/kc tails and the obstacle barrier are the "
-            "next slice of the port"
-        )
+    pm = tail == "pm"
     p = dc.DynamicCarParams.from_config(car_config)
-    H = N
+    H = N + M
     NZ, NU, NC = 10, 2, 10
+    NW = NZ + NU
     w = {k: float(v) for k, v in cfg["cost_weights"].items()}
     ci = {k: float(v) for k, v in cfg["input_constraints"].items()}
     cs = {k: float(v) for k, v in cfg["state_constraints"].items()}
+    ct = {k: float(v) for k, v in cfg["state_pm_constraints"].items()} if pm else None
     FS = FORCE_SCALE
+    fs = 1.0 / FS
+
+    def split(n, wf):
+        """(z, Fx, u1, Fx_prev, u1_prev) in physical units: u1 is w before N
+        and Fy (kN in the solver) from N on; the previous u1 is in kN from
+        N+1 on."""
+        z, u = wf[:NZ], wf[NZ:]
+        u1 = u[1] * FS if pm and n >= N else u[1]
+        u1_prev = z[9] * FS if pm and n >= N + 1 else z[9]
+        return z, u[0] * FS, u1, z[8] * FS, u1_prev
 
     def stage_cost(n, wf, kv, ds_read):
-        z, u = wf[:NZ], wf[NZ:]
-        x = z[:8]
-        cost = fm.st_running_cost_fields(
-            n, x, u[0] * FS, u[1], z[8] * FS, ds_read(n), ds_read(max(n - 1, 0)),
-            p, w, cs, N,
-        )
+        z, Fx, u1, Fx_prev, u1_prev = split(n, wf)
+        dsn, ds_prev = ds_read(n), ds_read(max(n - 1, 0))
+        if n < N:
+            cost = fm.st_running_cost_fields(
+                n, z[:8], Fx, u1, Fx_prev, dsn, ds_prev, p, w, cs, N
+            )
+        else:
+            ey = z[2]
+            cost = fm.boundary_fields(ey, dsn, w["boundary"], ct["ey_min"], ct["ey_max"])
+            cost = cost + w["deviation_pm"] * dsn * ey**2
+            if n >= N + 1:  # Fx/Fy slew against the previous action
+                cost = cost + ((w["Fx"] / ds_prev) * (Fx - Fx_prev) ** 2
+                               + (w["Fy"] / ds_prev) * (u1 - u1_prev) ** 2)
+            if n == N:  # switching cost against the seam's stashed lateral force
+                cost = cost + (w["switch_F"] / ds_read(N - 1)) * (
+                    (Fx - Fx_prev) ** 2 + (u1 - z[5]) ** 2
+                )
         if n == H - 1:
-            cost = cost + fm.term_cost_fields(x, w, cs)
+            if pm:
+                cost = cost + fm.term_cost_fields(z[0], z[2], z[3], z[4], w, cs)
+            else:
+                cost = cost + fm.term_cost_fields(z[0], z[5], z[6], z[7], w, cs)
         return cost
 
     def constraints(n, wf):
-        z, u = wf[:NZ], wf[NZ:]
-        c = fm.constraint_fields(z[:8], u[0] * FS, u[1], p, ci, cs)
+        z, Fx, u1, _, _ = split(n, wf)
+        if n >= N:  # point mass: speed floor, engine power, padding
+            V = z[0]
+            return [ct["V_min"] - V, (Fx - p.Peng / J.maximum(V, 1.0)) * fs] + [-1.0] * 8
+        c = fm.constraint_fields(z[:8], Fx, u1, p, ci, cs)
         if n == 0:
             # the state-only rows (speed floor, steering box) are undecidable
             # at the fixed stage-0 state (problems._mask_stage0_state_rows)
@@ -114,54 +199,41 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
         )
 
     def dyn(n, wf, kv, ds_read):
-        z, u = wf[:NZ], wf[NZ:]
-        nxt = fm.rk4_step(z[:8], u[0] * FS, u[1], kv, ds_read(n), p)
-        # steering stop on the integrated delta (problems._sat_col)
-        nxt[3] = J.clip(nxt[3], cs["delta_min"], cs["delta_max"])
-        return tuple(nxt) + (u[0], u[1])
+        z, Fx, u1, _, _ = split(n, wf)
+        dsn = ds_read(n)
+        if n < N - 1 or not pm:
+            nxt = fm.rk4_step(z[:8], Fx, u1, kv, dsn, p)
+            # steering stop on the integrated delta (problems._sat_col)
+            nxt[3] = J.clip(nxt[3], cs["delta_min"], cs["delta_max"])
+        elif n == N - 1:
+            seam = fm.seam_fields(z[:8], Fx, p)
+            nxt = seam + [torch.zeros_like(J.val(seam[0]))] * 2
+        else:
+            nxt = pm_step(z[:5], Fx, u1, kv, dsn, p)
+            nxt = nxt + [torch.zeros_like(J.val(nxt[0]))] * 3
+        return tuple(nxt) + (wf[NZ], wf[NZ + 1])
 
     def u_box(n, j):
         if j == 0:
             return -30.0, 60.0  # Fx in kN (brake, drive)
+        if pm and n >= N:
+            return TAIL_BOX
         return ci["w_min"], ci["w_max"]
 
-    def stage_derivs(n, wf, lam, mu, kv, ds_read):
-        ref = wf[0]
-        for f in tuple(wf[1:]) + (kv, mu):
-            ref = ref + 0.0 * f  # common broadcast shape of every input
-        zero = torch.zeros_like(ref)
-        one = torch.ones_like(ref)
-        dsn = ds_read(n)
-        ds_prev = ds_read(max(n - 1, 0))
-        NW = NZ + NU
+    def _jac(cols, nxt, ones, zero):
+        """(..., NZ, NW) from per-column jets of the next state: ``cols`` maps
+        a stage variable to its seed index; ``ones`` lists the (row,
+        variable) unit entries (the identity columns and the stash rows)."""
+        Jm = zero.new_zeros(zero.shape + (NZ, NW))
+        for i, c in cols.items():
+            for r, q in enumerate(nxt):
+                Jm[..., r, i] = fm.dcol(q, c) + zero
+        for r, i in ones:
+            Jm[..., r, i] = 1.0
+        return Jm
 
-        # gradient of the full AL cost: first-order jets over all 12 inputs
-        L = al_cost(n, Jet.seed(list(wf)), lambda j: lam[j], mu, kv, ds_read)
-        g = L.d + zero.unsqueeze(-1)
-
-        # dynamics Jacobian: jets over (Ux, Uy, r, delta, ey, epsi, u_Fx, w);
-        # s_next = s + ds and t_next = t + ds/s_dot give the e4/e7 columns,
-        # the previous-action stash is never read and stash_next = u
-        seeds = Jet.seed([wf[i] for i in fm.RK4_COLS] + [wf[NZ], wf[NZ + 1]])
-        x8 = list(wf[:8])
-        for c, i in enumerate(fm.RK4_COLS):
-            x8[i] = seeds[c]
-        nxt = fm.rk4_step(x8, seeds[6] * FS, seeds[7], kv, dsn, p)
-        nxt[3] = J.clip(nxt[3], cs["delta_min"], cs["delta_max"])
-        col_of = {0: 0, 1: 1, 2: 2, 3: 3, 5: 4, 6: 5, NZ: 6, NZ + 1: 7}
-        Jcols = []
-        for i in range(NW):
-            if i in (4, 7):
-                Jcols.append([one if r == i else zero for r in range(NZ)])
-            elif i in (8, 9):
-                Jcols.append([zero] * NZ)
-            else:
-                col = [fm.dcol(q, col_of[i]) + zero for q in nxt]
-                col += [one if i == NZ else zero, one if i == NZ + 1 else zero]
-                Jcols.append(col)
-        Jm = torch.stack([torch.stack(c, -1) for c in Jcols], -1)  # (..., NZ, NW)
-
-        # nonquadratic Hessian block: second-order jets over VIDX
+    def _st_hessian(n, wf, lam, mu, dsn, ds_prev, zero):
+        """Hessian of a single-track stage's AL cost (stages n < N)."""
         s5 = Jet.seed([wf[i] for i in VIDX], second=True)
         xq = list(s5[:4]) + list(wf[4:8])
         Fxq = s5[4] * FS
@@ -177,7 +249,7 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
         c_all = constraints(n, wf)
 
         def act(j):
-            return (lam[j] + mu * c_all[j] > 0.0).to(zero.dtype)
+            return _active(lam[j] + mu * c_all[j], zero.dtype)
 
         keep = 0.0 if n == 0 else 1.0
         termf = 1.0 if n == H - 1 else 0.0
@@ -201,9 +273,95 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
             Hw[..., 8, NZ] -= coef
             Hw[..., NZ, 8] -= coef
             Hw[..., NZ, NZ] += coef
-        return g, Hw, Jm
+        return Hw
+
+    def _tail_hessian(n, wf, lam, mu, dsn, ds_prev, ds_seam, zero):
+        """Hessian of a point-mass stage's AL cost (stages n >= N), closed form."""
+        c_all = constraints(n, wf)
+
+        def act(j):
+            return _active(lam[j] + mu * c_all[j], zero.dtype)
+
+        Hw = zero.new_zeros(zero.shape + (NW, NW))
+        V, ey = wf[0], wf[2]
+        blo = (ey < ct["ey_min"]).to(zero.dtype)
+        bhi = (ey > ct["ey_max"]).to(zero.dtype)
+        Hw[..., 2, 2] = 2.0 * w["boundary"] * dsn * (blo + bhi) + 2.0 * w["deviation_pm"] * dsn
+        # constraint rows: 0 the V floor (linear), 1 the engine power
+        Hw[..., 0, 0] += mu * act(0)
+        Vm = torch.clamp_min(V, 1.0)
+        liveV = (V > 1.0).to(zero.dtype) + 0.5 * (V == 1.0).to(zero.dtype)  # max's tie rule
+        gV = fs * p.Peng / (Vm * Vm) * liveV  # d c1 / dV; d c1 / du_Fx = 1
+        lam_hat1 = torch.clamp_min(lam[1] + mu * c_all[1], 0.0)
+        a1 = mu * act(1)
+        Hw[..., 0, 0] += a1 * gV * gV + lam_hat1 * (-2.0 * fs * p.Peng / (Vm * Vm * Vm)) * liveV
+        Hw[..., 0, NZ] += a1 * gV
+        Hw[..., NZ, 0] += a1 * gV
+        Hw[..., NZ, NZ] += a1
+        if n >= N + 1:  # Fx/Fy slew (both previous actions in kN)
+            for zi, ui, wk in ((8, NZ, "Fx"), (9, NZ + 1, "Fy")):
+                coef = (2.0 * w[wk] / ds_prev) * (FS * FS)
+                Hw[..., zi, zi] += coef
+                Hw[..., zi, ui] -= coef
+                Hw[..., ui, zi] -= coef
+                Hw[..., ui, ui] += coef
+        if n == N:  # switching cost: Fx against the stash, Fy against z[5]
+            cw = 2.0 * w["switch_F"] / ds_seam
+            Hw[..., NZ, NZ] += cw * (FS * FS)
+            Hw[..., NZ, 8] -= cw * (FS * FS)
+            Hw[..., 8, NZ] -= cw * (FS * FS)
+            Hw[..., 8, 8] += cw * (FS * FS)
+            Hw[..., NZ + 1, NZ + 1] += cw * (FS * FS)
+            Hw[..., NZ + 1, 5] -= cw * FS
+            Hw[..., 5, NZ + 1] -= cw * FS
+            Hw[..., 5, 5] += cw
+        if n == H - 1:  # terminal cost on the point-mass fields
+            Hw[..., 0, 0] += (2.0 * w["speed"]) * (V >= cs["max_speed"]).to(zero.dtype)
+            Hw[..., 2, 2] += 2.0 * w["ey"]
+            Hw[..., 3, 3] += 2.0 * w["epsi"]
+        return Hw
+
+    def stage_derivs(n, wf, lam, mu, kv, ds_read):
+        ref = wf[0]
+        for f in tuple(wf[1:]) + (kv, mu):
+            ref = ref + 0.0 * f  # common broadcast shape of every input
+        zero = torch.zeros_like(ref)
+        dsn = ds_read(n)
+        ds_prev = ds_read(max(n - 1, 0))
+
+        # gradient of the full AL cost: first-order jets over all 12 inputs
+        L = al_cost(n, Jet.seed(list(wf)), lambda j: lam[j], mu, kv, ds_read)
+        g = L.d + zero.unsqueeze(-1)
+        stash = ((8, NZ), (9, NZ + 1))  # stash_next = u
+
+        if n >= N:  # point mass: jets through the Euler step
+            seeds = Jet.seed([wf[i] for i in PM_COLS])
+            x5 = [seeds[0], wf[1], seeds[1], seeds[2], wf[4]]
+            nxt = pm_step(x5, seeds[3] * FS, seeds[4] * FS, kv, dsn, p)
+            # s_next = s + ds, t_next = t + ds / s_dot_eff
+            Jm = _jac({i: c for c, i in enumerate(PM_COLS)}, nxt, ((1, 1), (4, 4)) + stash, zero)
+            return g, _tail_hessian(n, wf, lam, mu, dsn, ds_prev, ds_read(N - 1), zero), Jm
+
+        if n == N - 1 and pm:  # the seam: jets through the handoff map
+            seeds = Jet.seed([wf[i] for i in VIDX])
+            seam = fm.seam_fields(list(seeds[:4]) + list(wf[4:8]), seeds[4] * FS, p)
+            # s, ey and t pass through; epsi adds to beta
+            Jm = _jac({i: c for c, i in enumerate(VIDX)}, seam,
+                      ((1, 4), (2, 5), (3, 6), (4, 7)) + stash, zero)
+        else:  # single track: jets over (Ux, Uy, r, delta, ey, epsi, u_Fx, w)
+            seeds = Jet.seed([wf[i] for i in fm.RK4_COLS] + [wf[NZ], wf[NZ + 1]])
+            x8 = list(wf[:8])
+            for c, i in enumerate(fm.RK4_COLS):
+                x8[i] = seeds[c]
+            nxt = fm.rk4_step(x8, seeds[6] * FS, seeds[7], kv, dsn, p)
+            nxt[3] = J.clip(nxt[3], cs["delta_min"], cs["delta_max"])
+            cols = {i: c for c, i in enumerate(fm.RK4_COLS + (NZ, NZ + 1))}
+            # s_next = s + ds, t_next = t + ds / s_dot; the stash is never read
+            Jm = _jac(cols, nxt, ((4, 4), (7, 7)) + stash, zero)
+        return g, _st_hessian(n, wf, lam, mu, dsn, ds_prev, zero), Jm
 
     return FMFamily(
-        NZ, NU, NC, H, al_cost, dyn, u_box, stage_cost, constraints, stage_derivs,
-        p, w, ci, cs,
+        NZ=NZ, NU=NU, NC=NC, H=H, N=N, tail=tail, al_cost=al_cost, dyn=dyn, u_box=u_box,
+        stage_cost=stage_cost, constraints=constraints, stage_derivs=stage_derivs,
+        params=p, weights=w, input_constraints=ci, state_constraints=cs, tail_constraints=ct,
     )

@@ -21,7 +21,7 @@ import torch
 from vehicle_control_tpu_torch.models import dynamic_car as dc
 from vehicle_control_tpu_torch.utils import jet as J
 from vehicle_control_tpu_torch.utils.jet import Jet
-from vehicle_control_tpu_torch.utils.math import tan
+from vehicle_control_tpu_torch.utils.math import arctan, safe_div, tan
 
 FORCE_SCALE = 1000.0
 
@@ -175,11 +175,23 @@ def st_running_cost_fields(n, x, Fx, wact, Fx_prev, dsn, ds_prev, p, w, cs, N):
     return cost
 
 
-def term_cost_fields(x, w, cs):
-    """Terminal cost folded into stage H-1 (problems.term_cost)."""
-    Ux, ey, epsi, t = x[0], x[5], x[6], x[7]
-    over = J.where(J.val(Ux) >= cs["max_speed"], (Ux - cs["max_speed"]) ** 2, 0.0)
+def term_cost_fields(speed, ey, epsi, t, w, cs):
+    """Terminal cost folded into stage H-1 (problems.term_cost), on the
+    fields of the model that is live there."""
+    over = J.where(J.val(speed) >= cs["max_speed"], (speed - cs["max_speed"]) ** 2, 0.0)
     return w["speed"] * over + w["time"] * t + w["ey"] * ey**2 + w["epsi"] * epsi**2
+
+
+def seam_fields(x, Fx, p):
+    """The handoff from the single-track state to the point mass at stage
+    N-1 (problems.build_cascaded_problem's seam): V, s, ey, beta + epsi, t
+    and the lateral-force stash Fy_f + Fy_r that the switching cost reads.
+    ``x`` is the raw (unclamped) state, ``Fx`` the stage's drive force in N."""
+    Ux, Uy, r, delta, s, ey, epsi, t = x
+    V = J.sqrt(Ux**2 + Uy**2)
+    beta = arctan(safe_div(Uy, Ux))
+    fy_tot = dc.Fy_f(Ux, Uy, r, delta, Fx, p) + dc.Fy_r(Ux, Uy, r, delta, Fx, p)
+    return [V, s, ey, beta + epsi, t, fy_tot]
 
 
 def constraint_fields(x, Fx, wact, p, ci, cs):

@@ -59,6 +59,9 @@ class LinesearchKernelFM:
     ``launches`` counts the CUDA launches; the plain path does not count.
     """
 
+    _entry = "vct_linesearch_fm"  # the kernel's C entry point
+    _layout = staticmethod(cuda_lib.soa)  # (B, ...) input -> the layout it reads
+
     def __init__(self, family, alphas):
         if not 1 <= len(alphas) <= cuda_lib.MAX_ALPHA:
             raise ValueError(f"1..{cuda_lib.MAX_ALPHA} step sizes, got {len(alphas)}")
@@ -85,13 +88,13 @@ class LinesearchKernelFM:
                       ds=(B, H), z0=(B, NZ))
         cuda_lib.check_inputs(shapes, ins, Xref.device)
         lib = cuda_lib.load_library()
-        soas = [cuda_lib.soa(t) for t in ins.values()]
+        laid = [self._layout(t) for t in ins.values()]
         costs = torch.empty(A, B, dtype=torch.float32, device=Xref.device)
-        rc = lib.vct_linesearch_fm(
+        rc = getattr(lib, self._entry)(
             self._params.ctypes.data, self._alphas.ctypes.data, A,
-            *[t.data_ptr() for t in soas], costs.data_ptr(), B, H,
+            *[t.data_ptr() for t in laid], costs.data_ptr(), B, H,
             torch.cuda.current_stream(Xref.device).cuda_stream,
         )
-        cuda_lib.check_launch(lib, rc, "linesearch_fm")
+        cuda_lib.check_launch(lib, rc, self._entry)
         self.launches += 1
         return costs

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from vehicle_control_tpu_torch.controllers.mpc.controllers import MPCCarry
+from vehicle_control_tpu_torch.controllers.mpc.problems import HorizonParams
 from vehicle_control_tpu_torch.environment.track import TrackData
 from vehicle_control_tpu_torch.models.dynamic_car import DynamicCarParams
 from vehicle_control_tpu_torch.utils.device import DEFAULT_DEVICE, require_device
@@ -47,6 +48,11 @@ def car_params(fields: Mapping[str, np.ndarray]) -> DynamicCarParams:
 def mpc_carry(X_pred, U_pred, lam, device=DEFAULT_DEVICE, dtype=torch.float64) -> MPCCarry:
     """MPCCarry from (B, H, nz), (B, H, nu) and (B, H, nc) arrays."""
     return MPCCarry(*(tensor(a, device, dtype) for a in (X_pred, U_pred, lam)))
+
+
+def horizon_params(curvature, ds, device=DEFAULT_DEVICE, dtype=torch.float64) -> HorizonParams:
+    """HorizonParams from the per-stage (B, H) curvature and arc-step arrays."""
+    return HorizonParams(tensor(curvature, device, dtype), tensor(ds, device, dtype))
 
 
 def plant_states(states, device=DEFAULT_DEVICE, dtype=torch.float64) -> torch.Tensor:
