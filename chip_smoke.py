@@ -2,7 +2,9 @@
 
 Builds the five CUDA kernels from ``vehicle_control_tpu_torch/csrc`` with
 nvcc (one process per source, all at once) and prints each kernel's
-registers and stack, then runs two families at the bench's protocol (B=4096,
+registers and stack, and for kernels 2 and 3 (a team of threads per
+scenario) the team width, threads per launch, shared memory per block and
+resident warps per SM.  Then it runs two families at the bench's protocol (B=4096,
 f32, K=10 steps per chunk, states from ``initial_states`` seed 0 with their
 aligned carries):
 
@@ -128,6 +130,23 @@ def lane_errors(a, b):
     return (a - b).abs().reshape(b.shape[0], -1).amax(-1) / scale
 
 
+def worst_entry(a, b):
+    """Where lane_errors(a, b) peaks: 'lane/stage/field:kernel/plain'."""
+    err = lane_errors(a, b)
+    lane = int(err.argmax())
+    flat = int((a[lane].double() - b[lane].double()).abs().argmax())
+    stage, field = divmod(flat, a.shape[-1])
+    return f"{lane}/{stage}/{field}:{a[lane, stage, field].item():.6g}/{b[lane, stage, field].item():.6g}"
+
+
+def well_config(budget):
+    """Check (i)'s solver: one outer x one inner iteration at rho0 = RHO_WELL."""
+    from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig
+
+    return ALILQRConfig(n_outer=1, n_inner=1, n_polish=0, n_alpha=budget["n_alpha"],
+                        mu0=budget["mu0"], rho0=RHO_WELL)
+
+
 def finite_lanes(ts):
     """(B,) bool: every entry of every tensor finite on the lane (batch axis 0)."""
     ok = torch.ones(ts[0].shape[0], dtype=torch.bool, device=ts[0].device)
@@ -244,17 +263,53 @@ def drive(step, carry, states, wrappers, expected, k, chunks, label):
     return carry, states, times, conv.float().mean().item()
 
 
+def family_problem(label, env):
+    """(problem, budget, main-path config, main-path step, shape fields)."""
+    from vehicle_control_tpu_torch.controllers.mpc import problems
+    from vehicle_control_tpu_torch.parallel.batch import make_batched_racing_step
+    from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig
+    from vehicle_control_tpu_torch.utils.config import load_config
+
+    ctrl_yaml, tail, horizon, budget = FAMILIES[label]
+    ctrl = load_config(f"{env['root']}/configs/controllers/{ctrl_yaml}")
+    ctrl.update(obstacles=False, **horizon)
+    problem = problems.build_cascaded_problem(env["car"], env["track"], ctrl, tail,
+                                              torch.float32, env["dev"])
+    fam = problem.family
+    shape = dict(B=B, H=fam.H) if tail == "none" else dict(B=B, N=fam.N, M=fam.H - fam.N)
+    cfg = ALILQRConfig(**budget, use_solve_kernel=True)
+    main_step = make_batched_racing_step(problem, cfg, env["transition"], env["tdata"], DT, 4)
+    return problem, budget, cfg, main_step, shape
+
+
+def warm_inputs(problem, cfg, main_step, env):
+    """The drops (``initial_states`` seed 0) with their aligned carry, one
+    closed-loop step of the main path from there, and the next solve's
+    inputs with its first backward pass's X: a dict of tensors on the card."""
+    from vehicle_control_tpu_torch.parallel.batch import aligned_carry, initial_states
+    from vehicle_control_tpu_torch.solvers.al_ilqr import rollout
+
+    dev, f32 = env["dev"], torch.float32
+    states = torch.as_tensor(initial_states(env["track"].length, B, np.random.default_rng(0)),
+                             dtype=f32, device=dev)
+    carry = aligned_carry(problem, states)
+    carry1, states1, _, _ = main_step(carry, states)
+    params, z0 = problem.init_horizon(states1, carry1.X_pred, carry1.U_pred)
+    U_init = carry1.U_pred.contiguous()
+    U = torch.clamp(U_init, problem.u_lo, problem.u_hi).contiguous()
+    X = torch.nan_to_num(rollout(problem.fns, params, z0, U)[0], nan=0.0, posinf=1e6,
+                         neginf=-1e6).contiguous()
+    return dict(carry1=carry1, states1=states1, z0=z0.contiguous(), U_init=U_init, U=U, X=X,
+                lam=carry1.lam.contiguous(), mu=torch.full((B,), cfg.mu0, dtype=f32, device=dev),
+                curv=params.curvature.contiguous(), ds=params.ds.contiguous())
+
+
 def run_family(label, env):
     """Checks, main path, profile, timings and bounds of one family; returns
     its numbers for the kernels line."""
-    from vehicle_control_tpu_torch.controllers.mpc import problems
-    from vehicle_control_tpu_torch.parallel.batch import (
-        aligned_carry,
-        initial_states,
-        make_batched_racing_step,
-    )
+    from vehicle_control_tpu_torch.parallel.batch import make_batched_racing_step
     from vehicle_control_tpu_torch.solvers import cuda_lib
-    from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig, rollout
+    from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig
     from vehicle_control_tpu_torch.solvers.backward_kernel_fm import (
         BackwardKernelFM,
         backward_plain,
@@ -266,18 +321,11 @@ def run_family(label, env):
         linesearch_costs_plain,
     )
     from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM, solve_plain
-    from vehicle_control_tpu_torch.utils.config import load_config
 
     dev, f32 = env["dev"], torch.float32
-    ctrl_yaml, tail, horizon, budget = FAMILIES[label]
-    ctrl = load_config(f"{env['root']}/configs/controllers/{ctrl_yaml}")
-    ctrl.update(obstacles=False, **horizon)
-    problem = problems.build_cascaded_problem(env["car"], env["track"], ctrl, tail, f32, dev)
-    fam = problem.family
+    problem, budget, cfg, main_step, shape = family_problem(label, env)
+    fam, tail = problem.family, FAMILIES[label][1]
     H = fam.H
-    shape = dict(B=B, H=H) if tail == "none" else dict(B=B, N=fam.N, M=H - fam.N)
-    cfg = ALILQRConfig(**budget, use_solve_kernel=True)
-    main_step = make_batched_racing_step(problem, cfg, env["transition"], env["tdata"], DT, 4)
     (solve_kernel,) = main_step.kernels
     side = {}
     if tail == "none":  # the two earlier routes
@@ -293,22 +341,12 @@ def run_family(label, env):
         bw_kernel, dv_kernel = BackwardKernelFM(fam), DerivsKernelFM(fam)
     aos_kernel = LinesearchKernelAoS(fam, cfg.alphas())
     wrappers = (solve_kernel, ls_kernel, bw_kernel, ls_kernel_d, dv_kernel, aos_kernel)
-    states = torch.as_tensor(initial_states(env["track"].length, B, np.random.default_rng(0)),
-                             dtype=f32, device=dev)
-    carry = aligned_carry(problem, states)
 
     # kernel inputs from a real warm-started state: one closed-loop step,
     # then the next solve's inputs and its first backward pass and line search
-    carry1, states1, _, _ = main_step(carry, states)
-    params, z0 = problem.init_horizon(states1, carry1.X_pred, carry1.U_pred)
-    U_init = carry1.U_pred.contiguous()
-    U = torch.clamp(U_init, problem.u_lo, problem.u_hi).contiguous()
-    X = torch.nan_to_num(rollout(problem.fns, params, z0, U)[0], nan=0.0, posinf=1e6,
-                         neginf=-1e6).contiguous()
-    lam = carry1.lam.contiguous()
-    mu = torch.full((B,), cfg.mu0, dtype=f32, device=dev)
-    curv, ds = params.curvature.contiguous(), params.ds.contiguous()
-    z0 = z0.contiguous()
+    w = warm_inputs(problem, cfg, main_step, env)
+    carry1, states1, z0, U_init, U, X, lam, mu, curv, ds = (
+        w[k] for k in ("carry1", "states1", "z0", "U_init", "U", "X", "lam", "mu", "curv", "ds"))
 
     # kernels 1, 5 and 2 against their plain versions on the same inputs, at
     # two regularizations: rho = RHO_WELL (well conditioned: direct
@@ -404,8 +442,7 @@ def run_family(label, env):
     # kernel 3 against its plain version on the next solve's inputs
     sv_args = (z0, U_init, lam, curv, ds)
     # (i) well conditioned: one outer x one inner iteration at rho0 = RHO_WELL
-    well = ALILQRConfig(n_outer=1, n_inner=1, n_polish=0, n_alpha=budget["n_alpha"],
-                        mu0=budget["mu0"], rho0=RHO_WELL)
+    well = well_config(budget)
     got = SolveKernelFM(fam, well)(*sv_args, trace=True)
     ref = solve_plain(fam, well, *sv_args, trace=True)
     torch.cuda.synchronize()
@@ -419,7 +456,9 @@ def run_family(label, env):
                 accepted=f"{(ref[7]['first_alpha'] > 0).float().mean().item():.4f}",
                 X=f"max:{x_err.max().item():.2e},median:{x_err.median().item():.2e}",
                 U=f"max:{u_err.max().item():.2e},median:{u_err.median().item():.2e}",
-                cost=f"max:{c_err.max().item():.2e},median:{c_err.median().item():.2e}")
+                cost=f"max:{c_err.max().item():.2e},median:{c_err.median().item():.2e}",
+                X_worst=worst_entry(got[0][same], ref[0][same]),
+                U_worst=worst_entry(got[1][same], ref[1][same]))
     if same.float().mean().item() < STEP_SAME:
         raise RuntimeError(f"kernel 3 (well): the chosen step differs on "
                            f"{int((~same).sum())} lanes")
@@ -575,36 +614,19 @@ def run_family(label, env):
                     bound_ms=bounds[k][0], bound_by=bounds[k][1]) for k in ms}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU", file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-    from vehicle_control_tpu_torch.environment.track import Track
-    from vehicle_control_tpu_torch.models import dynamic_car as dc
-    from vehicle_control_tpu_torch.solvers import cuda_lib
-    from vehicle_control_tpu_torch.utils.config import load_config, project_root
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 in the plain Riccati
-    dev = torch.device(DEVICE, 0)
-
-    # 1. device
-    name = torch.cuda.get_device_name(0)
+def card_line():
+    """(torch's name of card 0, nvidia-smi's name and power limit line)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    phase("device", name=repr(name), count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, nvidia_smi=repr(smi))
+    return torch.cuda.get_device_name(0), smi
 
-    # 2. build, and each kernel's registers and stack
-    t0 = time.perf_counter()
-    lib_path = cuda_lib.build_library()
-    cuda_lib.load_library()
-    build_s = time.perf_counter() - t0
+
+def print_ptxas(lib_path):
+    """Each kernel's stack frame, spills and registers from the build log."""
     with open(lib_path[:-3] + ".log") as fh:
         log = fh.read().splitlines()
-    phase("build", seconds=f"{build_s:.1f}", library=lib_path.split("/")[-1])
     for i, ln in enumerate(log):
         if "Compiling entry function" in ln:
             kernel = ln.split("'")[1]
@@ -612,12 +634,48 @@ def main() -> int:
             regs = log[i + 3].split(":", 1)[-1].strip() if i + 3 < len(log) else ""
             print(f"  ptxas: {kernel[:48]}: {frame}; {regs}")
 
+
+def make_env(dev):
+    """The car, the track and the plant step the families share."""
+    from vehicle_control_tpu_torch.environment.track import Track
+    from vehicle_control_tpu_torch.models import dynamic_car as dc
+    from vehicle_control_tpu_torch.utils.config import load_config, project_root
+
     root = project_root()
     car = load_config(f"{root}/configs/models/dynamic_car.yaml")
     track = Track(load_config(f"{root}/configs/environment/ippodromo.yaml"))
-    env = dict(dev=dev, root=root, car=car, track=track,
-               transition=dc.make_transitions(dc.DynamicCarParams.from_config(car))[0],
-               tdata=track.data.to(dev, torch.float32))
+    return dict(dev=dev, root=root, car=car, track=track,
+                transition=dc.make_transitions(dc.DynamicCarParams.from_config(car))[0],
+                tdata=track.data.to(dev, torch.float32))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 in the plain Riccati
+    dev = torch.device(DEVICE, 0)
+
+    # 1. device
+    name, smi = card_line()
+    phase("device", name=repr(name), count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda, nvidia_smi=repr(smi))
+
+    # 2. build, each kernel's registers and stack, and the launch shape of
+    # the team kernels (2 and 3) at B with their residency per SM
+    t0 = time.perf_counter()
+    lib_path = cuda_lib.build_library()
+    lib = cuda_lib.load_library()
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}", library=lib_path.split("/")[-1])
+    print_ptxas(lib_path)
+    launch = {key: cuda_lib.launch_info(fn, B) for key, fn in
+              (("bw", lib.vct_backward_fm_info), ("sv", lib.vct_solve_fm_info))}
+    for key, info in launch.items():
+        phase(f"launch:{'backward_fm' if key == 'bw' else 'solve_fm'}", B=B, **info)
+    env = make_env(dev)
     results = {}
     for label in FAMILIES:
         results[label] = run_family(label, env)
@@ -630,7 +688,8 @@ def main() -> int:
                     replaces=f"vehicle_control_tpu/solvers/{replaces}",
                     launches=top["launches"], max_abs_err=top["max_abs_err"], ms=top["ms"],
                     plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                    bound_by=top["bound_by"], library_ms=None, per_family=per)
+                    bound_by=top["bound_by"], library_ms=None, per_family=per,
+                    **({"launch": launch[key]} if key in launch else {}))
 
     kernels = [
         row("ls", "linesearch_fm", "rollout_fm.cu", "rollout_kernel_fm.py:42"),

@@ -147,6 +147,20 @@ def test_backward_kernel_matches_plain(inputs):
 
 
 @pytest.mark.cuda
+def test_team_kernels_launch_shape(cuda):
+    """Kernels 2 and 3 run a team of at least 4 threads per scenario, every
+    team's lanes in one warp, with several warps resident per SM."""
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+
+    lib = cuda_lib.load_library()
+    for fn in (lib.vct_backward_fm_info, lib.vct_solve_fm_info):
+        info = cuda_lib.launch_info(fn, 4096)
+        assert info["team"] >= 4 and 32 % info["team"] == 0, info
+        assert info["threads"] == 4096 * info["team"], info
+        assert info["warps_per_sm"] >= 4, info
+
+
+@pytest.mark.cuda
 def test_derivs_kernel_matches_plain(inputs):
     fam, X, U, lam, mu, _, curv, ds = inputs[:8]
     dk = DerivsKernelFM(fam)

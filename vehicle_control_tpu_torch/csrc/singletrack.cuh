@@ -4,10 +4,11 @@
 // al_cost, dyn, u_box, stage_derivs) for tail="none" (N = H single-track
 // stages) and tail="pm" (N single-track stages, then H - N point-mass
 // stages), plus the per-lane pieces the kernels share: the closed-loop stage
-// of a line-search candidate (kernels 1, 3 and 5) and the backward sweep
-// (kernels 2 and 3).  Templates over the scalar type give values (float) and
-// exact derivatives (Jet).  The polynomial arctan is kept, as on every path
-// of the JAX package, so the numbers stay comparable; no atanf.
+// of a line-search candidate (kernels 1, 3 and 5) and the stage derivatives
+// (kernels 2-4; team.cuh holds the backward sweep of kernels 2 and 3).
+// Templates over the scalar type give values (float) and exact derivatives
+// (Jet).  The polynomial arctan is kept, as on every path of the JAX
+// package, so the numbers stay comparable; no atanf.
 //
 // Stages are visited one static segment at a time, as the JAX kernels do
 // (fm_family.Seg): single track, the seam N-1, the switch N, the point-mass
@@ -463,9 +464,12 @@ VCT_HD_NOINLINE T al_cost(int n, int H, const T wf[NW], const float lam[NC], flo
 }
 
 // the family's dynamics at a stage of kind K: the RK4 step with the
-// steering stop, the seam, or the point-mass Euler step; stash = u
+// steering stop, the seam, or the point-mass Euler step; stash = u.  Not
+// inlined, so the line search and the re-roll of its choice run the same
+// instructions on every kind of stage and agree to the bit.
 template <int K>
-VCT_HD void dyn(const float wf[NW], float kv, float dsn, const STParams& p, float out[NZ]) {
+VCT_HD_NOINLINE void dyn(const float wf[NW], float kv, float dsn, const STParams& p,
+                         float out[NZ]) {
   if constexpr (K == K_ST || K == K_ST_TERM) {
     rk4_step(wf, wf[NZ] * FS, wf[NZ + 1], kv, dsn, p, out);
     out[3] = Clip(out[3], p.delta_min, p.delta_max);
@@ -730,133 +734,6 @@ VCT_HD void linesearch_lane(int b, int B, int H, float alpha, const float* xref,
     candidate_stage<decltype(kc)::value>(n, H, alpha, m, s, p, z, acc);
   });
   cost_out[b] = finite(acc) ? acc : INFINITY;
-}
-
-// the fused backward pass (derivatives + Riccati) of scenario b: writes the
-// gains kff (H, NU, B) and kfb (H, NU, NZ, B); returns the expected-decrease
-// terms and whether some stage's regularized Quu was not positive definite.
-// The stages run backward one segment at a time; each takes the stage
-// derivatives of its kind, then the Riccati step with the closed-form 2x2
-// solve of Quu + rho I.
-VCT_HD void backward_sweep(int b, int B, int H, const float* X, const float* U,
-                           const float* lam, float mu, float rho, const float* curv,
-                           const float* ds, float* kff, float* kfb, float& dV1_out,
-                           float& dV2_out, bool& fail_out, const STParams& p) {
-  float Vx[NZ], Vxx[NZ][NZ];
-  for (int r = 0; r < NZ; ++r) {
-    Vx[r] = 0.f;
-    for (int c = 0; c < NZ; ++c) Vxx[r][c] = 0.f;
-  }
-  float dV1 = 0.f, dV2 = 0.f;
-  bool fail = false;
-  const float dss = ds[seam_stage(p) * B + b];
-  Segments sg = segments(H, p);
-  for (int seg = sg.count - 1; seg >= 0; --seg) {
-    for (int n = sg.hi[seg] - 1; n >= sg.lo[seg]; --n) {
-      float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
-      for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
-      for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
-      for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-      const float kv = curv[n * B + b], dsn = ds[n * B + b];
-      const float dsp = ds[(n > 0 ? n - 1 : 0) * B + b];
-      with_kind(sg.kind[seg], [&](auto kc) {
-        stage_derivs<decltype(kc)::value>(n, H, wf, lamv, mu, kv, dsn, dsp, dss, p, g, Hw, Jm);
-      });
-      // Q terms; A = Jm[:, :NZ], B = Jm[:, NZ:], Hessian symmetrized
-      float Qx[NZ], Qu[NU], VxxA[NZ][NZ], VxxB[NZ][NU], Qxx[NZ][NZ], Qux[NU][NZ], Quu[NU][NU];
-      for (int r = 0; r < NZ; ++r) {
-        float s = g[r];
-        for (int k = 0; k < NZ; ++k) s += Jm[k][r] * Vx[k];
-        Qx[r] = s;
-      }
-      for (int j = 0; j < NU; ++j) {
-        float s = g[NZ + j];
-        for (int k = 0; k < NZ; ++k) s += Jm[k][NZ + j] * Vx[k];
-        Qu[j] = s;
-      }
-      for (int r = 0; r < NZ; ++r) {
-        for (int c = 0; c < NZ; ++c) {
-          float s = 0.f;
-          for (int k = 0; k < NZ; ++k) s += Vxx[r][k] * Jm[k][c];
-          VxxA[r][c] = s;
-        }
-        for (int j = 0; j < NU; ++j) {
-          float s = 0.f;
-          for (int k = 0; k < NZ; ++k) s += Vxx[r][k] * Jm[k][NZ + j];
-          VxxB[r][j] = s;
-        }
-      }
-      for (int r = 0; r < NZ; ++r)
-        for (int c = 0; c < NZ; ++c) {
-          float s = 0.5f * (Hw[r][c] + Hw[c][r]);
-          for (int k = 0; k < NZ; ++k) s += Jm[k][r] * VxxA[k][c];
-          Qxx[r][c] = s;
-        }
-      for (int j = 0; j < NU; ++j) {
-        for (int c = 0; c < NZ; ++c) {
-          float s = 0.5f * (Hw[NZ + j][c] + Hw[c][NZ + j]);
-          for (int k = 0; k < NZ; ++k) s += Jm[k][NZ + j] * VxxA[k][c];
-          Qux[j][c] = s;
-        }
-        for (int l = 0; l < NU; ++l) {
-          float s = 0.5f * (Hw[NZ + j][NZ + l] + Hw[NZ + l][NZ + j]);
-          for (int k = 0; k < NZ; ++k) s += Jm[k][NZ + j] * VxxB[k][l];
-          Quu[j][l] = s;
-        }
-      }
-      // closed-form solve with Quu + rho I; not PD when a <= 0 or det <= 0
-      float a = 0.5f * (Quu[0][0] + Quu[0][0]) + rho;
-      float bb = 0.5f * (Quu[0][1] + Quu[1][0]);
-      float d = 0.5f * (Quu[1][1] + Quu[1][1]) + rho;
-      float det = a * d - bb * bb;
-      bool bad = (a <= 0.f) || (det <= 0.f);
-      float inv_det = bad ? 1.f : 1.f / det;
-      float k0 = -((d * Qu[0] - bb * Qu[1]) * inv_det);
-      float k1 = -((a * Qu[1] - bb * Qu[0]) * inv_det);
-      float K[NU][NZ];
-      for (int c = 0; c < NZ; ++c) {
-        K[0][c] = -((d * Qux[0][c] - bb * Qux[1][c]) * inv_det);
-        K[1][c] = -((a * Qux[1][c] - bb * Qux[0][c]) * inv_det);
-      }
-      kff[at2(n, 0, NU, b, B)] = k0;
-      kff[at2(n, 1, NU, b, B)] = k1;
-      for (int j = 0; j < NU; ++j)
-        for (int c = 0; c < NZ; ++c) kfb[((size_t)(n * NU + j) * NZ + c) * B + b] = K[j][c];
-      // value function update with the regularized Quu
-      float Quuk0 = a * k0 + bb * k1, Quuk1 = bb * k0 + d * k1;
-      float QuuK[NU][NZ];
-      for (int c = 0; c < NZ; ++c) {
-        QuuK[0][c] = a * K[0][c] + bb * K[1][c];
-        QuuK[1][c] = bb * K[0][c] + d * K[1][c];
-      }
-      for (int c = 0; c < NZ; ++c)
-        Vx[c] = Qx[c] + K[0][c] * (Quuk0 + Qu[0]) + K[1][c] * (Quuk1 + Qu[1]) + Qux[0][c] * k0 +
-                Qux[1][c] * k1;
-      for (int r = 0; r < NZ; ++r)
-        for (int c = 0; c < NZ; ++c)
-          Qxx[r][c] += K[0][r] * QuuK[0][c] + K[1][r] * QuuK[1][c] + K[0][r] * Qux[0][c] +
-                       K[1][r] * Qux[1][c] + Qux[0][r] * K[0][c] + Qux[1][r] * K[1][c];
-      for (int r = 0; r < NZ; ++r)
-        for (int c = 0; c < NZ; ++c) Vxx[r][c] = 0.5f * (Qxx[r][c] + Qxx[c][r]);
-      dV1 += k0 * Qu[0] + k1 * Qu[1];
-      dV2 += 0.5f * (k0 * Quuk0 + k1 * Quuk1);
-      fail = fail || bad;
-    }
-  }
-  dV1_out = dV1;
-  dV2_out = dV2;
-  fail_out = fail;
-}
-
-// kernel 2: the backward pass of scenario b; dv (2, B), fail_out (B) as 0/1
-VCT_HD void backward_lane(int b, int B, int H, const float* X, const float* U,
-                          const float* lam, const float* mu, const float* rho,
-                          const float* curv, const float* ds, float* kff, float* kfb,
-                          float* dv, float* fail_out, const STParams& p) {
-  bool fail;
-  backward_sweep(b, B, H, X, U, lam, mu[b], rho[b], curv, ds, kff, kfb, dv[b], dv[B + b], fail,
-                 p);
-  fail_out[b] = fail ? 1.f : 0.f;
 }
 
 }  // namespace vct

@@ -1,52 +1,74 @@
 // Kernel 3: the whole AL-iLQR solve of the cascaded family (tail="none" or
-// tail="pm") in one launch.
+// tail="pm") in one launch, by a team of TEAM threads per scenario.
 //
 // Replaces the Pallas TPU kernel build_solve_kernel_fm
 // (vehicle_control_tpu/solvers/solve_kernel_fm.py).  Per scenario: clamp U,
 // the warm rollout (stores nan_to_num(z), steps the raw z), then for each
 // outer iteration an AL cost sweep and up to n_inner iterations of: the
-// backward pass (backward_sweep, shared with kernel 2), the costs of every
-// step size in one pass over the stages (candidate_stage, shared with
-// kernel 1), Armijo selection of the largest passing step, the re-roll of
-// that step into X and U, and the rho/done/accepted-count updates; then the
-// multiplier update and the penalty growth.  The polish phase runs the
-// inner loop once more at the boosted penalty; the finalize pass sums the
-// raw cost and the largest violation.  Plain version: solve_plain.
+// backward pass (backward_sweep in team.cuh, shared with kernel 2), the
+// costs of every step size (candidate_stage, shared with kernel 1), Armijo
+// selection of the largest passing step, the re-roll of that step into X
+// and U, and the rho/done/accepted-count updates; then the multiplier
+// update and the penalty growth.  The polish phase runs the inner loop once
+// more at the boosted penalty; the finalize pass sums the raw cost and
+// takes the largest violation.  Plain version: solve_plain.
 //
-// What bounds it on an H100: per scenario a serial chain of inner
-// iterations, each a backward pass (H stages; a single-track stage ~40k
-// dependent f32 operations, spilled to local memory, as in kernel 2, a
-// point-mass stage far fewer) plus A candidate rollouts and a re-roll
-// (~1.5k operations per single-track stage): latency and instruction
-// issue, not memory.  The whole state of a lane lives in the output
-// buffers (X, U, lam) and a scratch tensor from the wrapper (kff and kfb:
-// H x 22 floats): 44 floats per stage, 21.6 MB at B=4096, H=30, inside the
-// 50 MB L2, and 43.3 MB at H=60 (the cascade), which with its inputs no
-// longer fits.  Every stage loop runs one static segment at a time
-// (for_each_stage), so each stage calls the device functions of its kind.
-// Design, correctness first: one thread per scenario, blocks of 32 (B=4096
-// gives 128 blocks for 132 SMs), struct-of-arrays (stage, field, scenario)
-// so a warp reads 32 consecutive floats.  Where the TPU kernel leaves its
-// loop when a 1024-lane tile is done, a thread leaves as soon as its own
-// lane is done (early_exit), and with ls_fast_path it costs the rest of the
-// ladder only where alpha=1 fails Armijo: both change no output bit, since
-// every update of a done lane is masked and a lane that takes alpha=1 reads
-// no other candidate.  The candidate's feedback law, AL cost and RK4 step
-// are not inlined, so the line search and the re-roll agree to the bit.
+// What bounds it on an H100: latency and instruction issue, not bytes.  Per
+// scenario the inner iterations are a serial chain; each is a backward pass
+// (a single-track stage's derivatives are ~40k dependent f32 operations,
+// the Riccati step ~3k) plus A closed-loop rollouts and a re-roll (~1.5k
+// operations a single-track stage).  The bytes are ~14 MB of inputs and
+// outputs for ~1 ms of work at the f32 peak.
 //
-// The lane body is plain C++ (VCT_HD), so a host compiler builds it for
-// rehearsal; the kernel and its launcher are CUDA only.
+// The design spreads each scenario over a team (team.cuh): TEAM = 4
+// threads, eight scenarios to a warp, blocks of 128 threads (32 scenarios)
+// with 135,808 bytes of shared memory, one block (4 warps, 255 registers)
+// an SM.  At B = 4096: 16,384 threads in 128 blocks on 128 of the 132 SMs,
+// 4x the warps of one thread per scenario.  Teams of 8 (8 warps an SM) run
+// the backward pass faster, but the line search, the re-roll and the sums
+// slower on the cascade's 60 stages, where they lost to one thread per
+// scenario; teams of 4 beat it on both families (PERF.md, kernel_ab.py).
+// Within a team:
+// - the backward pass is stage-parallel: each member computes one stage's
+//   derivatives (stage_derivs, unchanged) into the team's shared chunk,
+//   then the team runs the chunk's Riccati steps in order, splitting each
+//   10-row product element by element, with the value function in shared
+//   memory (VCT_RICCATI_SPLIT; 0 leaves the steps to member 0);
+// - the line search is step-parallel: member t rolls out candidates t,
+//   t + TEAM, ... over the whole horizon, each in the stage order of the
+//   sum, so each cost is the one a single thread computes; Armijo then
+//   picks the largest passing step on every member alike, and member
+//   (chosen step % TEAM) re-rolls it.  feedback_u and dyn are not inlined,
+//   so the re-roll and its candidate agree to the bit;
+// - the clamp of U, the multiplier update and the violation maximum are
+//   stage-parallel (independent stages, an exact maximum); the AL cost sum
+//   and the final cost sum are computed stage-parallel into shared memory
+//   and summed by every member in stage order, as the plain version sums
+//   (a reordered sum would move Armijo's ties); the warm rollout and the
+//   re-roll are serial chains on one member.
+// X, U, lam, kff and kfb stay in device memory (struct of arrays, (stage,
+// field, scenario)); the cascade's 176 bytes a stage over 60 stages and 32
+// scenarios an SM would not fit in shared memory.
+// The early exit (a team leaves its inner loop when its lane is done) and
+// ls_fast_path (candidate 1 first, the rest of the ladder only where it
+// fails Armijo) keep their flags and change no output bit: every update of
+// a done lane is masked, and a lane that takes alpha=1 reads no other
+// candidate.  With 6 candidates on 4 members a line search is two serial
+// rollouts; the fast path makes it one where alpha=1 passes and three
+// where it fails (not measured).
+//
+// The lane body is plain C++ (VCT_HD): csrc/host_driver.cpp builds it with
+// g++ for rehearsal; the kernel and its launcher are CUDA only.
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 #endif
 #include <string.h>
 
-#include "singletrack.cuh"
+#include "team.cuh"
 
 using namespace vct;
 
 constexpr int MAX_OUTER = 15;
-constexpr int SOLVE_BLOCK = 32;
 
 // the solver's constants (cuda_lib.SolveConfig), f32 as the kernel computes
 struct SolveConfig {
@@ -57,6 +79,7 @@ struct SolveConfig {
 };
 
 // the per-lane state the inner iterations carry between outer iterations
+// (uniform: every member holds the same values)
 struct LaneState {
   float rho, first_alpha;
   int n_acc, runs;
@@ -77,39 +100,54 @@ VCT_HD void load_w(int n, int b, int B, const float* X, const float* U, float wf
   for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
 }
 
-// the AL cost of the lane's current (X, U) at penalty mu
-VCT_HD float total_al_cost(int b, int B, int H, float mu, const float* X, const float* U,
-                           const float* lam, const float* ds, const STParams& p) {
+// the per-stage values in the chunk's first H floats, summed in stage order
+// by every member
+VCT_HD float ordered_sum(const Team& tm, int H) {
   float acc = 0.f;
-  const float dss = ds[seam_stage(p) * B + b];
-  for_each_stage(H, p, [&](int n, auto kc) {
-    float wf[NW], lamv[NC];
-    load_w(n, b, B, X, U, wf);
-    for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-    acc = acc + al_cost<decltype(kc)::value>(n, H, wf, lamv, mu, ds[n * B + b],
-                                             ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
-  });
+  for (int n = 0; n < H; ++n) acc = acc + tm.sh[n];
+  team_sync(tm);  // every member has read them before the chunk is reused
   return acc;
 }
 
-// the costs of step sizes a0..a1-1 in one pass over the stages
-VCT_HD_NOINLINE void sweep_candidates(int b, int B, int H, int a0, int a1, float mu,
-                                      const SolveConfig& cfg, const float* z0, const float* X,
-                                      const float* U, const float* kff, const float* kfb,
-                                      const float* lam, const float* curv, const float* ds,
-                                      const STParams& p, float costs[MAX_ALPHA]) {
-  float zs[MAX_ALPHA][NZ], accs[MAX_ALPHA];
-  for (int a = a0; a < a1; ++a) {
-    for (int i = 0; i < NZ; ++i) zs[a][i] = z0[i * B + b];
-    accs[a] = 0.f;
-  }
-  for_each_stage(H, p, [&](int n, auto kc) {
-    Stage s;
-    load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, p, s);
-    for (int a = a0; a < a1; ++a)
-      candidate_stage<decltype(kc)::value>(n, H, cfg.alphas[a], mu, s, p, zs[a], accs[a]);
+// the AL cost of the lane's current (X, U) at penalty mu
+VCT_HD float total_al_cost(const Team& tm, int b, int B, int H, float mu, const float* X,
+                           const float* U, const float* lam, const float* ds,
+                           const STParams& p) {
+  const float dss = ds[seam_stage(p) * B + b];
+  phase(tm, [&](int t) {
+    for_member_stages(t, H, p, [&](int n, auto kc) {
+      float wf[NW], lamv[NC];
+      load_w(n, b, B, X, U, wf);
+      for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
+      tm.sh[n] = al_cost<decltype(kc)::value>(n, H, wf, lamv, mu, ds[n * B + b],
+                                              ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
+    });
   });
-  for (int a = a0; a < a1; ++a) costs[a] = vct::finite(accs[a]) ? accs[a] : INFINITY;
+  return ordered_sum(tm, H);
+}
+
+// the costs of step sizes a0..a1-1 into sh[S_COST + a], member t rolling
+// out a0 + t, a0 + t + TEAM, ...; the steps a1..A-1 get +inf
+VCT_HD_NOINLINE void sweep_candidates(const Team& tm, int b, int B, int H, int a0, int a1,
+                                      int A, float mu, const SolveConfig& cfg, const float* z0,
+                                      const float* X, const float* U, const float* kff,
+                                      const float* kfb, const float* lam, const float* curv,
+                                      const float* ds, const STParams& p) {
+  float* costs = tm.sh + S_COST;
+  phase(tm, [&](int t) {
+    for (int a = a0 + t; a < a1; a += TEAM) {
+      float z[NZ], acc = 0.f;
+      for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
+      for_each_stage(H, p, [&](int n, auto kc) {
+        Stage s;
+        load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, p, s);
+        candidate_stage<decltype(kc)::value>(n, H, cfg.alphas[a], mu, s, p, z, acc);
+      });
+      costs[a] = vct::finite(acc) ? acc : INFINITY;
+    }
+    if (t == 0)
+      for (int a = a1; a < A; ++a) costs[a] = INFINITY;
+  });
 }
 
 // roll the chosen step and write it into X and U, in place: stage n reads
@@ -146,39 +184,38 @@ VCT_HD bool armijo_ok(const SolveConfig& cfg, int a, float cost_a, float cost_al
 }
 
 // up to `length` inner iterations at penalty mu
-VCT_HD_NOINLINE void run_inner(int b, int B, int H, float mu, int length,
+VCT_HD_NOINLINE void run_inner(const Team& tm, int b, int B, int H, float mu, int length,
                                const SolveConfig& cfg, const float* z0, float* X, float* U,
                                const float* lam, float* kff, float* kfb, const float* curv,
                                const float* ds, const STParams& p, LaneState& st) {
   const int A = cfg.n_alpha;
-  float cost_al = total_al_cost(b, B, H, mu, X, U, lam, ds, p);
+  const float* costs = tm.sh + S_COST;
+  float cost_al = total_al_cost(tm, b, B, H, mu, X, U, lam, ds, p);
   bool done = false;
   for (int it = 0; it < length; ++it) {
     if (cfg.early_exit && done) break;
     st.runs += 1;
     float dV1, dV2;
     bool fail;
-    backward_sweep(b, B, H, X, U, lam, mu, st.rho, curv, ds, kff, kfb, dV1, dV2, fail, p);
-    float costs[MAX_ALPHA];
-    for (int a = 0; a < A; ++a) costs[a] = INFINITY;
-    if (cfg.ls_fast_path && A > 1) {
-      sweep_candidates(b, B, H, 0, 1, mu, cfg, z0, X, U, kff, kfb, lam, curv, ds, p, costs);
-      if (!armijo_ok(cfg, 0, costs[0], cost_al, dV1, dV2, fail) && !done)
-        sweep_candidates(b, B, H, 1, A, mu, cfg, z0, X, U, kff, kfb, lam, curv, ds, p, costs);
-    } else {
-      sweep_candidates(b, B, H, 0, A, mu, cfg, z0, X, U, kff, kfb, lam, curv, ds, p, costs);
-    }
+    backward_sweep(tm, b, B, H, X, U, lam, mu, st.rho, curv, ds, kff, kfb, dV1, dV2, fail, p);
+    const int first = cfg.ls_fast_path && A > 1 ? 1 : A;
+    sweep_candidates(tm, b, B, H, 0, first, A, mu, cfg, z0, X, U, kff, kfb, lam, curv, ds, p);
+    if (first < A && !armijo_ok(cfg, 0, costs[0], cost_al, dV1, dV2, fail) && !done)
+      sweep_candidates(tm, b, B, H, first, A, A, mu, cfg, z0, X, U, kff, kfb, lam, curv, ds, p);
     // the largest step that passes (the ladder descends)
-    float alpha_sel = cfg.alphas[0], cost_sel = costs[0];
+    int sel = 0;
     bool any_ok = false;
     for (int a = 0; a < A; ++a) {
       if (!any_ok && armijo_ok(cfg, a, costs[a], cost_al, dV1, dV2, fail)) {
-        alpha_sel = cfg.alphas[a];
-        cost_sel = costs[a];
+        sel = a;
         any_ok = true;
       }
     }
-    if (any_ok && !done) reroll(b, B, H, alpha_sel, z0, X, U, kff, kfb, lam, curv, ds, p);
+    const float alpha_sel = cfg.alphas[sel], cost_sel = costs[sel];
+    if (any_ok && !done)
+      phase(tm, [&](int t) {
+        if (t == sel % TEAM) reroll(b, B, H, alpha_sel, z0, X, U, kff, kfb, lam, curv, ds, p);
+      });
     float cost_new = any_ok ? cost_sel : cost_al;
     // asymmetric LM schedule: climb fast on failure, relax slowly
     float rho_new = any_ok ? vmax(st.rho / cfg.rho_scale, cfg.rho_min)
@@ -203,23 +240,27 @@ VCT_HD_NOINLINE void run_inner(int b, int B, int H, float mu, int length,
 
 }  // namespace
 
-// kernel 3 on scenario b.  Inputs z0 (NZ, B), u0 (H, NU, B), lam0 (H, NC, B),
-// curv and ds (H, B); outputs X (H, NZ, B), U (H, NU, B), lam (H, NC, B) and
-// stats (6, B): cost, violation, converged, iterations, the step accepted in
-// the first inner iteration and the inner iterations run (cuda_lib.SOLVE_STATS);
-// kff (H, NU, B) and kfb (H, NU, NZ, B) are scratch.
-VCT_HD void solve_lane(int b, int B, int H, const SolveConfig& cfg, const STParams& p,
-                       const float* z0, const float* u0, const float* lam0, const float* curv,
-                       const float* ds, float* X, float* U, float* lam, float* kff, float* kfb,
-                       float* stats) {
-  for (int n = 0; n < H; ++n) {
-    float lo[NU], hi[NU];
-    stage_box(n, p, lo, hi);
-    for (int j = 0; j < NU; ++j)
-      U[at2(n, j, NU, b, B)] = Clip(u0[at2(n, j, NU, b, B)], lo[j], hi[j]);
-    for (int j = 0; j < NC; ++j) lam[at2(n, j, NC, b, B)] = lam0[at2(n, j, NC, b, B)];
-  }
-  {  // warm rollout: a divergent start must not poison the derivatives
+// kernel 3 on scenario b, by its team.  Inputs z0 (NZ, B), u0 (H, NU, B),
+// lam0 (H, NC, B), curv and ds (H, B); outputs X (H, NZ, B), U (H, NU, B),
+// lam (H, NC, B) and stats (6, B): cost, violation, converged, iterations,
+// the step accepted in the first inner iteration and the inner iterations
+// run (cuda_lib.SOLVE_STATS); kff (H, NU, B) and kfb (H, NU, NZ, B) are
+// scratch.  H <= CHUNK (the per-stage sums live in the chunk).
+VCT_HD void solve_lane(const Team& tm, int b, int B, int H, const SolveConfig& cfg,
+                       const STParams& p, const float* z0, const float* u0, const float* lam0,
+                       const float* curv, const float* ds, float* X, float* U, float* lam,
+                       float* kff, float* kfb, float* stats) {
+  phase(tm, [&](int t) {  // clamp U, copy the multipliers
+    for (int n = t; n < H; n += TEAM) {
+      float lo[NU], hi[NU];
+      stage_box(n, p, lo, hi);
+      for (int j = 0; j < NU; ++j)
+        U[at2(n, j, NU, b, B)] = Clip(u0[at2(n, j, NU, b, B)], lo[j], hi[j]);
+      for (int j = 0; j < NC; ++j) lam[at2(n, j, NC, b, B)] = lam0[at2(n, j, NC, b, B)];
+    }
+  });
+  phase(tm, [&](int t) {  // warm rollout: a divergent start must not poison the derivatives
+    if (t != 0) return;
     float z[NZ];
     for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
     for_each_stage(H, p, [&](int n, auto kc) {
@@ -232,53 +273,76 @@ VCT_HD void solve_lane(int b, int B, int H, const SolveConfig& cfg, const STPara
       dyn<decltype(kc)::value>(wf, curv[n * B + b], ds[n * B + b], p, nxt);
       for (int i = 0; i < NZ; ++i) z[i] = nxt[i];
     });
-  }
+  });
   LaneState st = {cfg.rho0, 0.f, 0, 0, true};
   for (int k = 0; k < cfg.n_outer; ++k) {
-    float mu = cfg.mus[k];
-    run_inner(b, B, H, mu, cfg.n_inner, cfg, z0, X, U, lam, kff, kfb, curv, ds, p, st);
-    for_each_stage(H, p, [&](int n, auto kc) {  // multipliers at this penalty
-      float wf[NW], c[NC];
-      load_w(n, b, B, X, U, wf);
-      stage_constraints<decltype(kc)::value>(n, wf, p, c);
-      for (int j = 0; j < NC; ++j) {
-        int at = at2(n, j, NC, b, B);
-        lam[at] = vmax(0.f, lam[at] + mu * c[j]);
-      }
+    const float mu = cfg.mus[k];
+    run_inner(tm, b, B, H, mu, cfg.n_inner, cfg, z0, X, U, lam, kff, kfb, curv, ds, p, st);
+    phase(tm, [&](int t) {  // multipliers at this penalty
+      for_member_stages(t, H, p, [&](int n, auto kc) {
+        float wf[NW], c[NC];
+        load_w(n, b, B, X, U, wf);
+        stage_constraints<decltype(kc)::value>(n, wf, p, c);
+        for (int j = 0; j < NC; ++j) {
+          int at = at2(n, j, NC, b, B);
+          lam[at] = vmax(0.f, lam[at] + mu * c[j]);
+        }
+      });
     });
   }
   if (cfg.n_polish > 0)
-    run_inner(b, B, H, cfg.mus[cfg.n_outer], cfg.n_polish, cfg, z0, X, U, lam, kff, kfb, curv,
-              ds, p, st);
-  float cost = 0.f, viol = 0.f;
+    run_inner(tm, b, B, H, cfg.mus[cfg.n_outer], cfg.n_polish, cfg, z0, X, U, lam, kff, kfb,
+              curv, ds, p, st);
   const float dss = ds[seam_stage(p) * B + b];
-  for_each_stage(H, p, [&](int n, auto kc) {
-    constexpr int K = decltype(kc)::value;
-    float wf[NW], c[NC];
-    load_w(n, b, B, X, U, wf);
-    cost = cost + stage_cost<K>(n, H, wf, ds[n * B + b], ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
-    stage_constraints<K>(n, wf, p, c);
-    for (int j = 0; j < NC; ++j) viol = vmax(viol, c[j]);
+  float* part = tm.sh + S_PART;
+  phase(tm, [&](int t) {  // raw stage costs and each member's largest violation
+    float viol = 0.f;
+    for_member_stages(t, H, p, [&](int n, auto kc) {
+      constexpr int K = decltype(kc)::value;
+      float wf[NW], c[NC];
+      load_w(n, b, B, X, U, wf);
+      tm.sh[n] = stage_cost<K>(n, H, wf, ds[n * B + b], ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
+      stage_constraints<K>(n, wf, p, c);
+      for (int j = 0; j < NC; ++j) viol = vmax(viol, c[j]);
+    });
+    part[t] = viol;
   });
+  const float cost = ordered_sum(tm, H);
+  float viol = 0.f;
+  for (int t = 0; t < TEAM; ++t) viol = vmax(viol, part[t]);
   viol = vmax(viol, 0.f);
-  stats[b] = cost;
-  stats[B + b] = viol;
-  stats[2 * B + b] = (viol < cfg.tol_con && vct::finite(cost)) ? 1.f : 0.f;
-  stats[3 * B + b] = (float)st.n_acc;
-  stats[4 * B + b] = st.first_alpha;
-  stats[5 * B + b] = (float)st.runs;
+  const float n_acc = (float)st.n_acc, first_alpha = st.first_alpha, runs = (float)st.runs;
+  phase(tm, [&](int t) {
+    if (t != 0) return;
+    stats[b] = cost;
+    stats[B + b] = viol;
+    stats[2 * B + b] = (viol < cfg.tol_con && vct::finite(cost)) ? 1.f : 0.f;
+    stats[3 * B + b] = n_acc;
+    stats[4 * B + b] = first_alpha;
+    stats[5 * B + b] = runs;
+  });
+}
+
+// the launcher's checks: 0 or the error to return
+VCT_HD int solve_args_error(const SolveConfig& cfg, int B, int H) {
+  return (B < 1 || H < 1 || H > CHUNK || cfg.n_alpha < 1 || cfg.n_alpha > MAX_ALPHA ||
+          cfg.n_outer < 0 || cfg.n_outer > MAX_OUTER)
+             ? 1
+             : 0;
 }
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(SOLVE_BLOCK) solve_fm_kernel(
+__global__ void __launch_bounds__(TEAM_BLOCK, VCT_MIN_BLOCKS) solve_fm_kernel(
     STParams p, SolveConfig cfg, const float* __restrict__ z0, const float* __restrict__ u0,
     const float* __restrict__ lam0, const float* __restrict__ curv, const float* __restrict__ ds,
     float* __restrict__ x, float* __restrict__ u, float* __restrict__ lam, float* __restrict__ kff,
     float* __restrict__ kfb, float* __restrict__ stats, int B, int H) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  solve_lane(b, B, H, cfg, p, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats);
+  extern __shared__ float smem[];
+  const int b = (blockIdx.x * TEAM_BLOCK + threadIdx.x) / TEAM;
+  if (b >= B) return;  // the whole team
+  solve_lane(make_team(smem), b, B, H, cfg, p, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb,
+             stats);
 }
 
 extern "C" int vct_solve_config_size() { return (int)sizeof(SolveConfig); }
@@ -289,14 +353,20 @@ extern "C" int vct_solve_fm(const float* params, const void* config, const float
                             float* kfb, float* stats, int B, int H, void* stream) {
   SolveConfig cfg;
   memcpy(&cfg, config, sizeof(SolveConfig));
-  if (B < 1 || H < 1 || cfg.n_alpha < 1 || cfg.n_alpha > MAX_ALPHA || cfg.n_outer < 0 ||
-      cfg.n_outer > MAX_OUTER)
-    return (int)cudaErrorInvalidValue;
+  if (solve_args_error(cfg, B, H)) return (int)cudaErrorInvalidValue;
   STParams p;
   memcpy(&p, params, sizeof(STParams));
-  solve_fm_kernel<<<(B + SOLVE_BLOCK - 1) / SOLVE_BLOCK, SOLVE_BLOCK, 0, (cudaStream_t)stream>>>(
+  cudaError_t rc = team_smem_setup(solve_fm_kernel);
+  if (rc != cudaSuccess) return (int)rc;
+  const int blocks = (int)(((long long)B * TEAM + TEAM_BLOCK - 1) / TEAM_BLOCK);
+  solve_fm_kernel<<<blocks, TEAM_BLOCK, TEAM_SMEM_BYTES, (cudaStream_t)stream>>>(
       p, cfg, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats, B, H);
   return (int)cudaGetLastError();
+}
+
+// the launch shape at B scenarios (team.cuh: team_launch_info)
+extern "C" int vct_solve_fm_info(int B, int* out) {
+  return team_launch_info(solve_fm_kernel, B, out);
 }
 
 #endif

@@ -106,14 +106,16 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> str:
-    """Compile ``csrc/*.cu`` unless a library for these sources exists; return
-    its path.  Each source compiles in its own ``nvcc``, all at once; the
-    compilers' output (ptxas registers and spills) goes to a ``.log`` beside
-    the library."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build_library(sources=None, flags=NVCC_FLAGS) -> str:
+    """Compile ``csrc/*.cu`` (or the given ``.cu`` files, with the ``.cuh``
+    beside them; other nvcc flags for measurements) unless a library for these
+    sources and flags exists; return its path.  Each source compiles in its
+    own ``nvcc``, all at once; the compilers' output (ptxas registers and
+    spills) goes to a ``.log`` beside the library."""
+    sources = sorted(sources or glob.glob(os.path.join(CSRC, "*.cu")))
+    include = os.path.dirname(sources[0])
+    headers = sorted(glob.glob(os.path.join(include, "*.cuh")))
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in sources + headers:
         with open(path, "rb") as fh:
             digest.update(os.path.basename(path).encode() + fh.read())
@@ -127,7 +129,7 @@ def build_library() -> str:
         objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o") for src in sources]
         jobs = []
         for src, obj in zip(sources, objs):
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+            cmd = [nvcc, *flags, "-I", include, "-c", "-o", obj, src]
             jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
         log, failed = [], []
@@ -175,11 +177,29 @@ def load_library() -> ctypes.CDLL:
     # (params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream)
     lib.vct_derivs_fm.argtypes = [P] + [P] * 9 + [I, I, P]
     lib.vct_derivs_fm.restype = I
+    for fn in (lib.vct_solve_fm_info, lib.vct_backward_fm_info):  # (B, out)
+        fn.argtypes = [I, P]
+        fn.restype = I
     if lib.vct_param_count() != len(PARAM_FIELDS):
         raise RuntimeError("csrc STParams and PARAM_FIELDS disagree")
     if lib.vct_solve_config_size() != ctypes.sizeof(SolveConfig):
         raise RuntimeError("csrc SolveConfig and cuda_lib.SolveConfig disagree")
     return lib
+
+
+# csrc/team.cuh: team_launch_info, the launch shape of kernels 2 and 3
+LAUNCH_INFO = ("team", "threads", "block", "registers", "stack_bytes", "static_smem_bytes",
+               "smem_bytes_per_block", "blocks_per_sm", "warps_per_sm")
+
+
+def launch_info(fn, B: int) -> dict:
+    """A team kernel's launch shape at B scenarios and its residency on the
+    card (``fn``: ``lib.vct_solve_fm_info`` or ``lib.vct_backward_fm_info``)."""
+    out = (ctypes.c_int * len(LAUNCH_INFO))()
+    rc = fn(B, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"launch info: CUDA error {rc}")
+    return dict(zip(LAUNCH_INFO, out))
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
