@@ -37,6 +37,8 @@ prints no result.  Writes nothing outside ``build/``.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
 import json
 import statistics
 import subprocess
@@ -108,19 +110,88 @@ def phase(label, **fields):
     print(f"[{label}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def cuda_ms(fn, reps=REPS, warm=True):
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
+def cuda_ms(fn, reps=REPS, warm=True, runs=None):
+    """Median milliseconds of fn() over reps runs, timed with CUDA events;
+    each run's (host start, host end, ms) appended to ``runs`` if given."""
     if warm:
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+        if runs is not None:
+            runs.append((t0, time.time(), times[-1]))
     return statistics.median(times)
+
+
+def time_modes(times, gap=0.05):
+    """The times split at their largest gap, where it exceeds ``gap`` x the
+    median (else one mode): a list of lists, fastest first."""
+    t = sorted(times)
+    gaps = [b - a for a, b in zip(t, t[1:])]
+    if not gaps or max(gaps) <= gap * statistics.median(t):
+        return [t]
+    i = gaps.index(max(gaps)) + 1
+    return [t[:i], t[i:]]
+
+
+# nvidia-smi's fields for the clock samples beside kernel 3's timed launches
+SMI_CLOCKS = ("timestamp", "clocks.sm", "power.draw", "temperature.gpu",
+              "clocks_throttle_reasons.active")
+
+
+@contextlib.contextmanager
+def sampled_clocks(period_ms=20):
+    """Sample SMI_CLOCKS with nvidia-smi every period_ms while the block
+    runs; yields a list that holds (host time, sm MHz, watts, deg C,
+    throttle reasons) afterwards, empty if nvidia-smi gave none."""
+    samples = []
+    proc = subprocess.Popen(["nvidia-smi", f"--query-gpu={','.join(SMI_CLOCKS)}",
+                             "--format=csv,noheader,nounits", "-lms", str(period_ms)],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    time.sleep(1.0)  # its first sample
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        try:
+            out = proc.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+        for ln in out.splitlines():
+            f = [x.strip() for x in ln.split(",")]
+            try:
+                at = datetime.datetime.strptime(f[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                samples.append((at, float(f[1]), float(f[2]), float(f[3]), f[4]))
+            except (ValueError, IndexError):
+                continue
+
+
+def clock_modes(runs, samples):
+    """Each mode of the timed runs: its count, median ms, and the clock
+    samples taken during its runs (SM MHz and watts min-max, throttle
+    reasons seen)."""
+    out = {}
+    for i, mode in enumerate(time_modes([ms for _, _, ms in runs])):
+        lo, hi = mode[0], mode[-1]
+        inside = [s for t0, t1, ms in runs if lo <= ms <= hi for s in samples if t0 <= s[0] <= t1]
+        row = f"{len(mode)}x{statistics.median(mode):.3f}ms({lo:.3f}-{hi:.3f})"
+        if inside:
+            mhz, watts = [s[1] for s in inside], [s[2] for s in inside]
+            row += (f",samples:{len(inside)},sm_mhz:{min(mhz):.0f}-{max(mhz):.0f}"
+                    f",watts:{min(watts):.0f}-{max(watts):.0f}"
+                    f",deg_c:{max(s[3] for s in inside):.0f}"
+                    f",throttle:{'|'.join(sorted({s[4] for s in inside}))}")
+        else:
+            row += ",clocks:not_measured"
+        out[f"mode{i}"] = row
+    return out
 
 
 def lane_errors(a, b):
@@ -458,7 +529,8 @@ def run_family(label, env):
                 U=f"max:{u_err.max().item():.2e},median:{u_err.median().item():.2e}",
                 cost=f"max:{c_err.max().item():.2e},median:{c_err.median().item():.2e}",
                 X_worst=worst_entry(got[0][same], ref[0][same]),
-                U_worst=worst_entry(got[1][same], ref[1][same]))
+                U_worst=worst_entry(got[1][same], ref[1][same]),
+                margin=f"{SOLVE_TOL / max(x_err.max(), u_err.max(), c_err.max()).item():.3g}")
     if same.float().mean().item() < STEP_SAME:
         raise RuntimeError(f"kernel 3 (well): the chosen step differs on "
                            f"{int((~same).sum())} lanes")
@@ -562,8 +634,14 @@ def run_family(label, env):
         aos=cuda_ms(lambda: aos_kernel(*ls_args)),
         bw=cuda_ms(lambda: bw_kernel(*bw_args)),
         dv=cuda_ms(lambda: dv_kernel(*dv_args)),
-        sv=cuda_ms(lambda: solve_kernel(*sv_args)),
     )
+    # kernel 3's runs with the card's clocks beside them: its time has shown
+    # two modes on the single track
+    sv_runs = []
+    with sampled_clocks() as clocks:
+        ms["sv"] = cuda_ms(lambda: solve_kernel(*sv_args), runs=sv_runs)
+    phase(f"{label}:kernel3_modes", runs=len(sv_runs), clock_samples=len(clocks),
+          **clock_modes(sv_runs, clocks))
     plain_ms = dict(
         ls=cuda_ms(lambda: linesearch_costs_plain(fam, alphas, *ls_args), PLAIN_REPS),
         bw=cuda_ms(lambda: backward_plain(fam, *bw_args), PLAIN_REPS),

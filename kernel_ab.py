@@ -2,10 +2,9 @@
 on one NVIDIA GPU.
 
 Builds, all at once, the port's kernel library (``csrc/``: a team of 4
-threads per scenario, each Riccati step split over the team) and four
-variants of kernels 2 and 3 from the same sources: teams of 8, teams of 16
-at 128 registers, the Riccati steps on one member of the team
-(``VCT_RICCATI_SPLIT=0``), and no FMA contraction (``-fmad=false``).  With
+threads per scenario) and two variants of kernels 2 and 3 from the same
+sources, which differ only in nvcc flags: teams of 8 (``-DVCT_TEAM=8``) and
+no FMA contraction (``-fmad=false``).  With
 ``--baseline DIR`` it also builds the two kernels from the ``solve_fm.cu``
 and ``backward_fm.cu`` in DIR (for example an earlier commit's ``csrc/``,
 unpacked into an ignored folder), which must take the same C arguments.
@@ -15,7 +14,8 @@ shapes and budgets, on the same warm-started inputs
 (``chip_smoke.warm_inputs``), it times one launch of every build's kernel 3
 (the main path's budget) and kernel 2 (at the solver's rho0) with CUDA
 events, the builds in turns (forward order, then backward, ``--reps``
-rounds), and reports the median of each, whether each build gives the
+rounds), and reports the median and the two modes of each
+(``chip_smoke.time_modes``), whether each build gives the
 port's outputs bit for bit, how far from them the others' lie, and each
 build's distance from the plain version in ``chip_smoke.py``'s check (i)
 (one outer x one inner iteration at rho0 = 1).
@@ -49,8 +49,6 @@ def _flags(*extra):
 
 VARIANTS = {  # build -> its nvcc flags (the port's library is "team4")
     "team8": lambda: _flags("-DVCT_TEAM=8"),
-    "team16_128regs": lambda: _flags("-DVCT_TEAM=16", "-DVCT_MIN_BLOCKS=4"),
-    "team4_riccati_on_one": lambda: _flags("-DVCT_RICCATI_SPLIT=0"),
     "team4_no_fma": lambda: _flags("-fmad=false"),
 }
 TEAM_SOURCES = ("solve_fm.cu", "backward_fm.cu")
@@ -58,14 +56,12 @@ TEAM_SOURCES = ("solve_fm.cu", "backward_fm.cu")
 
 def load(path, team):
     """A build's library; ``team``: it reports its launch shape."""
-    lib = ctypes.CDLL(path)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vct_backward_fm.argtypes = [P] + [P] * 11 + [I, I, P]
-    lib.vct_solve_fm.argtypes = [P, P] + [P] * 11 + [I, I, P]
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+
+    names = ("vct_solve_fm", "vct_backward_fm")
     if team:
-        for fn in (lib.vct_solve_fm_info, lib.vct_backward_fm_info):
-            fn.argtypes = [I, P]
-    return lib
+        names += ("vct_solve_fm_info", "vct_backward_fm_info")
+    return cuda_lib.declare(ctypes.CDLL(path), names)
 
 
 def build_all(baseline):
@@ -88,13 +84,17 @@ def build_all(baseline):
 
 
 def lane_err(a, b):
-    """Per lane (last axis): max |a - b| / (1 + max |b| of the lane)."""
-    a, b = a.double().reshape(-1, a.shape[-1]), b.double().reshape(-1, b.shape[-1])
-    return (a - b).abs().amax(0) / (1.0 + b.abs().amax(0))
+    """chip_smoke.lane_errors of (..., B) tensors."""
+    return chip_smoke.lane_errors(a.movedim(-1, 0), b.movedim(-1, 0))
 
 
 def same_bits(outs, ref):
-    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(outs, ref))
+    return all(chip_smoke.same_bits(a, b) for a, b in zip(outs, ref))
+
+
+def modes(times):
+    """chip_smoke.time_modes as 'count x median' of each mode, fastest first."""
+    return "/".join(f"{len(m)}x{statistics.median(m):.3f}" for m in chip_smoke.time_modes(times))
 
 
 def run_family(label, env, libs, reps):
@@ -171,6 +171,8 @@ def run_family(label, env, libs, reps):
         sv, bw = sv_out[n], bw_out[n]
         row = dict(solve_ms=statistics.median(times[n, "solve"]),
                    backward_ms=statistics.median(times[n, "backward"]),
+                   solve_modes=modes(times[n, "solve"]),
+                   backward_modes=modes(times[n, "backward"]),
                    solve_ms_min=min(times[n, "solve"]),
                    backward_ms_min=min(times[n, "backward"]),
                    solve_bitwise=same_bits(sv[:3] + sv[5:], ref_sv[:3] + ref_sv[5:]),

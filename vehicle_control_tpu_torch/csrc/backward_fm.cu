@@ -37,7 +37,7 @@ using namespace vct;
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(TEAM_BLOCK, VCT_MIN_BLOCKS) backward_fm_kernel(
+__global__ void __launch_bounds__(TEAM_BLOCK) backward_fm_kernel(
     STParams p, const float* __restrict__ x, const float* __restrict__ u,
     const float* __restrict__ lam, const float* __restrict__ mu, const float* __restrict__ rho,
     const float* __restrict__ curv, const float* __restrict__ ds, float* __restrict__ kff,

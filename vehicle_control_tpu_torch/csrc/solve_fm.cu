@@ -33,7 +33,7 @@
 //   derivatives (stage_derivs, unchanged) into the team's shared chunk,
 //   then the team runs the chunk's Riccati steps in order, splitting each
 //   10-row product element by element, with the value function in shared
-//   memory (VCT_RICCATI_SPLIT; 0 leaves the steps to member 0);
+//   memory (faster than leaving the steps to one member: PERF.md);
 // - the line search is step-parallel: member t rolls out candidates t,
 //   t + TEAM, ... over the whole horizon, each in the stage order of the
 //   sum, so each cost is the one a single thread computes; Armijo then
@@ -333,7 +333,7 @@ VCT_HD int solve_args_error(const SolveConfig& cfg, int B, int H) {
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(TEAM_BLOCK, VCT_MIN_BLOCKS) solve_fm_kernel(
+__global__ void __launch_bounds__(TEAM_BLOCK) solve_fm_kernel(
     STParams p, SolveConfig cfg, const float* __restrict__ z0, const float* __restrict__ u0,
     const float* __restrict__ lam0, const float* __restrict__ curv, const float* __restrict__ ds,
     float* __restrict__ x, float* __restrict__ u, float* __restrict__ lam, float* __restrict__ kff,

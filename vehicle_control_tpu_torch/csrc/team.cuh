@@ -33,16 +33,10 @@
 
 #include "singletrack.cuh"
 
-// The build's variants (kernel_ab.py measures them): the team's width, who
-// runs the Riccati steps, and the register cap.
+// The team's width: 4 is the build the wrappers load; the host test and
+// kernel_ab.py also build 8 (-DVCT_TEAM=8).
 #ifndef VCT_TEAM
 #define VCT_TEAM 4  // threads per scenario
-#endif
-#ifndef VCT_RICCATI_SPLIT
-#define VCT_RICCATI_SPLIT 1  // 1: the team splits each Riccati step; 0: member 0 runs it
-#endif
-#ifndef VCT_MIN_BLOCKS
-#define VCT_MIN_BLOCKS 1  // __launch_bounds__: resident blocks an SM (1 or 2: 255 registers)
 #endif
 
 namespace vct {
@@ -99,11 +93,7 @@ VCT_HD void phase(const Team& tm, F&& f) {
 // member t's share of count independent elements of a Riccati product
 template <class F>
 VCT_HD void riccati_elements(int t, int count, F&& f) {
-  if (VCT_RICCATI_SPLIT) {
-    for (int e = t; e < count; e += TEAM) f(e);
-  } else if (t == 0) {
-    for (int e = 0; e < count; ++e) f(e);
-  }
+  for (int e = t; e < count; e += TEAM) f(e);
 }
 
 // f(n, KindC<kind>{}) on member t's stages: each segment in chunks of

@@ -153,33 +153,39 @@ def build_library(sources=None, flags=NVCC_FLAGS) -> str:
     return lib
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the library's C interface: name -> (argument types, result type)
+SIGNATURES = {
+    "vct_param_count": ([], _I),
+    "vct_error_string": ([_I], ctypes.c_char_p),
+    # (params, alphas, A, xref, uref, kff, kfb, lam, mu, curv, ds, z0, costs, B, H, stream)
+    "vct_linesearch_fm": ([_P, _P, _I] + [_P] * 10 + [_I, _I, _P], _I),
+    "vct_linesearch_aos": ([_P, _P, _I] + [_P] * 10 + [_I, _I, _P], _I),
+    # (params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B, H, stream)
+    "vct_backward_fm": ([_P] + [_P] * 11 + [_I, _I, _P], _I),
+    # (params, cfg, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats, B, H, stream)
+    "vct_solve_fm": ([_P, _P] + [_P] * 11 + [_I, _I, _P], _I),
+    "vct_solve_config_size": ([], _I),
+    # (params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream)
+    "vct_derivs_fm": ([_P] + [_P] * 9 + [_I, _I, _P], _I),
+    # (B, out)
+    "vct_solve_fm_info": ([_I, _P], _I),
+    "vct_backward_fm_info": ([_I, _P], _I),
+}
+
+
+def declare(lib: ctypes.CDLL, names=SIGNATURES) -> ctypes.CDLL:
+    """Declare the C interface of the named functions of a loaded library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declare its C interface."""
-    lib = ctypes.CDLL(build_library())
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vct_param_count.argtypes = []
-    lib.vct_param_count.restype = I
-    lib.vct_error_string.argtypes = [I]
-    lib.vct_error_string.restype = ctypes.c_char_p
-    # (params, alphas, A, xref, uref, kff, kfb, lam, mu, curv, ds, z0, costs, B, H, stream)
-    for fn in (lib.vct_linesearch_fm, lib.vct_linesearch_aos):
-        fn.argtypes = [P, P, I] + [P] * 10 + [I, I, P]
-        fn.restype = I
-    # (params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B, H, stream)
-    lib.vct_backward_fm.argtypes = [P] + [P] * 11 + [I, I, P]
-    lib.vct_backward_fm.restype = I
-    # (params, cfg, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats, B, H, stream)
-    lib.vct_solve_fm.argtypes = [P, P] + [P] * 11 + [I, I, P]
-    lib.vct_solve_fm.restype = I
-    lib.vct_solve_config_size.argtypes = []
-    lib.vct_solve_config_size.restype = I
-    # (params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream)
-    lib.vct_derivs_fm.argtypes = [P] + [P] * 9 + [I, I, P]
-    lib.vct_derivs_fm.restype = I
-    for fn in (lib.vct_solve_fm_info, lib.vct_backward_fm_info):  # (B, out)
-        fn.argtypes = [I, P]
-        fn.restype = I
+    lib = declare(ctypes.CDLL(build_library()))
     if lib.vct_param_count() != len(PARAM_FIELDS):
         raise RuntimeError("csrc STParams and PARAM_FIELDS disagree")
     if lib.vct_solve_config_size() != ctypes.sizeof(SolveConfig):
