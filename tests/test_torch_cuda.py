@@ -161,6 +161,51 @@ def test_team_kernels_launch_shape(cuda):
 
 
 @pytest.mark.cuda
+def test_linesearch_and_derivs_launch_shape(cuda):
+    """Kernel 1: a block of 32 scenarios, a rollout and a cost warp per step
+    size (up to 8 of each), three chunks of stage records and the ring in
+    shared memory.  Kernel 4: a thread per (scenario, stage, direction
+    group), blocks of 4 warps."""
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+
+    lib = cuda_lib.load_library()
+    for A, warps, chunk in ((6, 6, 4), (10, 8, 4), (16, 8, 2)):
+        info = cuda_lib.launch_info(lib.vct_linesearch_fm_info, 4096, A)
+        assert info["scenarios_per_block"] == 32, info
+        assert info["block"] == 64 * warps and info["threads"] == 128 * 64 * warps, info
+        # records: 3 chunks x 32 scenarios x 53 floats; ring: 2 chunks x A x 32 x 13
+        assert info["smem_bytes_per_block"] == chunk * 32 * 4 * (3 * 53 + 2 * A * 13), info
+        assert info["blocks_per_sm"] >= 1, info
+    info = cuda_lib.launch_info(lib.vct_derivs_fm_info, 4096, 30)
+    assert info["groups"] in (2, 4) and info["block"] == 128, info
+    assert info["threads"] == 4096 * 30 * info["groups"], info
+    assert info["smem_bytes_per_block"] == 0 and info["warps_per_sm"] >= 4, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["none", "pm"])
+def test_linesearch_and_derivs_ragged_batch(inputs, pm_inputs, family):
+    """Kernels 1 and 4 at B = 40 (a block of 32 scenarios and a ragged one),
+    kernel 1 with 12 step sizes (some warps take two, chunks of 2 stages),
+    against their plain versions."""
+    fam, X, U, lam, mu, _, curv, ds, z0, kff, Kfb = inputs if family == "none" else pm_inputs
+    n = 40
+    X, U, lam, mu, curv, ds, z0, kff, Kfb = (t[:n].contiguous()
+                                             for t in (X, U, lam, mu, curv, ds, z0, kff, Kfb))
+    alphas = ALILQRConfig(n_alpha=12).alphas()
+    args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    got, ref = LinesearchKernelFM(fam, alphas)(*args), linesearch_costs_plain(fam, alphas, *args)
+    assert got.shape == (12, n) and torch.isposinf(got[:, :2]).all()
+    torch.testing.assert_close(torch.isposinf(got), torch.isposinf(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-4, atol=1e-4)
+    for name, a, b in zip(("g", "Hw", "J"), DerivsKernelFM(fam)(X, U, lam, mu, curv, ds),
+                          derivs_plain(fam, X, U, lam, mu, curv, ds)):
+        assert a.shape == b.shape, name
+        assert _lane_err(a, b).max().item() < 1e-4, name
+
+
+@pytest.mark.cuda
 def test_derivs_kernel_matches_plain(inputs):
     fam, X, U, lam, mu, _, curv, ds = inputs[:8]
     dk = DerivsKernelFM(fam)

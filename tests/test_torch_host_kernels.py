@@ -1,12 +1,14 @@
-"""Kernels 2 and 3's team code, built with the host compiler, against their
-plain PyTorch versions on the CPU.
+"""Kernels 1-4's lane bodies, built with the host compiler, on the CPU.
 
 ``csrc/host_driver.cpp`` compiles the lane bodies of ``csrc/team.cuh``
-(kernel 2, the backward pass) and ``csrc/solve_fm.cu`` (kernel 3, the whole
-solve) with g++ into ``build/host/``; each scenario's team of TEAM members
-is emulated in one thread, phase by phase.  Two builds: the kernels' team
-of 4, and teams of 8.  The test decides whether g++ exists when it runs, and
-skips without it.
+(kernel 2, the backward pass), ``csrc/solve_fm.cu`` (kernel 3, the whole
+solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives by direction
+group) and ``csrc/rollout_fm.cu`` (kernel 1, the line search from staged
+stage records) with g++ into ``build/host/``; each scenario's team of TEAM
+members is emulated in one thread, phase by phase, and kernel 1's blocks
+phase by phase.  Two builds, compiled side by side: the kernels' team of 4,
+and teams of 8.  The test decides whether g++ exists when it runs, and skips
+without it.
 
 Inputs: bench-like drops (``initial_states``, seed 0) with their aligned
 warm starts, rolled out under perturbed controls, with random multipliers,
@@ -20,7 +22,14 @@ beyond the state guard and from a NaN.  Tolerances (those of
   every lane, X, U and cost within SOLVE_TOL (the two diverged lanes: flags
   and counts only);
 - early_exit x ls_fast_path, and the members run in the other order, change
-  no output bit.
+  no output bit;
+- kernel 4: its direction groups, run one after another in either order,
+  give the all-directions derivatives (stage_derivs, within DV_TOL of the
+  plain version) bit for bit, and each entry is written by exactly one group;
+- kernel 1: the staged blocks (rollout and cost warps, one chunk apart)
+  give the one-lane rollouts' costs (linesearch_lane, within LS_RTOL of the
+  plain version) bit for bit, with step sizes that fit the warps of a block
+  and with more.
 """
 
 import ctypes
@@ -41,50 +50,76 @@ from vehicle_control_tpu_torch.parallel.batch import aligned_carry, initial_stat
 from vehicle_control_tpu_torch.solvers import cuda_lib
 from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig, rollout
 from vehicle_control_tpu_torch.solvers.backward_kernel_fm import backward_plain
+from vehicle_control_tpu_torch.solvers.derivs_kernel_fm import derivs_plain
+from vehicle_control_tpu_torch.solvers.rollout_kernel_fm import linesearch_costs_plain
 from vehicle_control_tpu_torch.solvers.solve_kernel_fm import solve_plain
 from vehicle_control_tpu_torch.utils.config import load_config, project_root
 
 B = 8
 HORIZONS = {"none": dict(horizon=6), "pm": dict(horizon=4, horizon_pm=5)}
-BW_TOL, SOLVE_TOL = 1e-3, 1e-4
+BW_TOL, SOLVE_TOL, DV_TOL, LS_RTOL = 1e-3, 1e-4, 1e-4, 1e-4
+BUILDS = {"team4": (), "team8": ("-DVCT_TEAM=8",)}
 WELL = ALILQRConfig(n_outer=1, n_inner=1, n_polish=0, n_alpha=6, mu0=300.0, rho0=1.0)
 BUDGET = dict(n_outer=2, n_inner=3, n_polish=1, n_alpha=6, mu0=300.0)
 
 
-def _build(cxx, flags):
-    """Compile host_driver.cpp unless a library for these sources and flags exists."""
+def _library(flags):
+    """(the library's path for these sources and flags, the g++ command that builds it)."""
     sources = sorted(glob.glob(os.path.join(cuda_lib.CSRC, "*")))
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in sources:
         with open(path, "rb") as fh:
             digest.update(os.path.basename(path).encode() + fh.read())
-    out_dir = os.path.join(project_root(), "build", "host")
-    lib = os.path.join(out_dir, f"libvct_host_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(lib):
-        os.makedirs(out_dir, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            so = os.path.join(tmp, "lib.so")
-            cmd = [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", *flags, "-I", cuda_lib.CSRC,
-                   "-o", so, os.path.join(cuda_lib.CSRC, "host_driver.cpp")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            assert proc.returncode == 0, proc.stderr[-4000:]
-            os.replace(so, lib)
-    return lib
+    lib = os.path.join(project_root(), "build", "host", f"libvct_host_{digest.hexdigest()[:16]}.so")
+    return lib, ["-std=c++17", "-O1", "-shared", "-fPIC", *flags, "-I", cuda_lib.CSRC,
+                 os.path.join(cuda_lib.CSRC, "host_driver.cpp")]
 
 
-@pytest.fixture(scope="module", params=[(), ("-DVCT_TEAM=8",)], ids=["team4", "team8"])
-def host_lib(request):
+def _build_all(cxx):
+    """{build: library path}: the builds that are missing compile side by side."""
+    libs = {name: _library(flags) for name, flags in BUILDS.items()}
+    out_dir = os.path.dirname(next(iter(libs.values()))[0])
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        jobs = {name: (lib, subprocess.Popen([cxx, *args, "-o", os.path.join(tmp, name)],
+                                             stderr=subprocess.PIPE, text=True))
+                for name, (lib, args) in libs.items() if not os.path.exists(lib)}
+        for name, (lib, proc) in jobs.items():
+            err = proc.communicate()[1]
+            assert proc.returncode == 0, err[-4000:]
+            os.replace(os.path.join(tmp, name), lib)
+    return {name: lib for name, (lib, _) in libs.items()}
+
+
+@pytest.fixture(scope="module")
+def host_libs():
     cxx = shutil.which("g++")
     if cxx is None:
-        pytest.skip("needs g++: the host build of the kernels' team code")
-    lib = ctypes.CDLL(_build(cxx, request.param))
+        pytest.skip("needs g++: the host build of the kernels' lane bodies")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vct_host_backward.argtypes = [P] + [P] * 11 + [I, I]
-    lib.vct_host_solve.argtypes = [P, P] + [P] * 11 + [I, I]
-    lib.vct_host_set_member_order.argtypes = [I]
-    assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
-    assert lib.vct_host_team() >= 4
-    return lib
+    libs = {}
+    for name, path in _build_all(cxx).items():
+        lib = ctypes.CDLL(path)
+        lib.vct_host_backward.argtypes = [P] + [P] * 11 + [I, I]
+        lib.vct_host_solve.argtypes = [P, P] + [P] * 11 + [I, I]
+        lib.vct_host_set_member_order.argtypes = [I]
+        lib.vct_host_derivs.argtypes = [P] * 10 + [I, I, I]
+        lib.vct_host_linesearch.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
+        assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
+        assert lib.vct_host_team() >= 4
+        libs[name] = lib
+    return libs
+
+
+@pytest.fixture(scope="module", params=list(BUILDS))
+def host_lib(request, host_libs):
+    return host_libs[request.param]
+
+
+@pytest.fixture(scope="module")
+def kernel_lib(host_libs):
+    """The build of the kernels' own team width."""
+    return host_libs["team4"]
 
 
 def host_backward(lib, fam, X, U, lam, mu, rho, curv, ds):
@@ -200,3 +235,90 @@ def test_exits_and_member_order_change_no_bit(host_lib, inputs):
     for out in outs[1:]:
         assert all(_same_bits(a, b) for a, b in zip(out, outs[0]))
     assert all(_same_bits(a, b) for a, b in zip(bw, bw_rev))
+
+
+def host_derivs(lib, fam, X, U, lam, mu, curv, ds, group, out=None):
+    """Kernel 4's outputs (g, Hw, J) in its (H, ..., B) layout: group < 0
+    every direction at once, else that direction group alone, into ``out``
+    (default: NaN-filled)."""
+    H, NW = fam.H, 12
+    if out is None:
+        out = tuple(torch.full(s, float("nan")) for s in ((H, NW, B), (H, NW, NW, B),
+                                                        (H, 10, NW, B)))
+    soas = [cuda_lib.soa(t) for t in (X, U, lam, mu, curv, ds)]
+    params = cuda_lib.family_params(fam)
+    rc = lib.vct_host_derivs(params.ctypes.data, *[t.data_ptr() for t in soas + list(out)],
+                             B, H, group)
+    assert rc == 0
+    return out
+
+
+def _active(inputs):
+    """The inputs with the lateral states spread and the multipliers scaled
+    up, so that the slip penalty and the PHR rows of the Hessian's
+    second-order block are live (at the inputs' own values it is almost all
+    zeros)."""
+    fam, X, U, lam, mu, _, curv, ds = inputs[:8]
+    rng = np.random.default_rng(2)
+    X = X.clone()
+    for field, scale in ((1, 2.0), (2, 0.5), (3, 0.1)):  # Uy, r, delta
+        X[..., field] += torch.as_tensor(rng.normal(size=X.shape[:2]) * scale, dtype=X.dtype)
+    return fam, X, U, lam * 300.0, mu, curv, ds
+
+
+def test_derivs_groups_give_all_directions(kernel_lib, inputs):
+    fam, X, U, lam, mu, curv, ds = _active(inputs)
+    ref = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds, -1)
+    plain = derivs_plain(fam, X, U, lam, mu, curv, ds)
+    for a, b in zip(ref, plain):
+        assert torch.isfinite(a).all()
+        assert _lane_err(a.movedim(-1, 0), b).max().item() < DV_TOL
+    block = ref[1][:fam.N][:, [0, 1, 2, 3, 10]][:, :, [0, 1, 2, 3, 10]]
+    assert (block != 0).float().mean() > 0.8  # the second-order block is live
+    G = kernel_lib.vct_host_deriv_groups()
+    assert G in (2, 4)
+    for order in (range(G), reversed(range(G))):
+        out = None
+        for group in order:
+            out = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds, group, out)
+        assert all(_same_bits(a, b) for a, b in zip(out, ref))
+
+
+def test_derivs_groups_write_each_entry_once(kernel_lib, inputs):
+    fam, X, U, lam, mu, curv, ds = _active(inputs)
+    writes = None
+    for group in range(kernel_lib.vct_host_deriv_groups()):
+        out = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds, group)
+        w = [(~torch.isnan(t)).int() for t in out]
+        writes = w if writes is None else [a + b for a, b in zip(writes, w)]
+    assert all(bool((t == 1).all()) for t in writes)
+
+
+@pytest.mark.parametrize("n_alpha", [6, 12])
+def test_linesearch_staged_matches_lane(kernel_lib, inputs, n_alpha):
+    """Kernel 1's staged blocks against the one-lane rollouts: 6 step sizes
+    (a rollout and a cost warp each, chunks of 4 stages) and 12 (some warps
+    take two, chunks of 2: the record buffers and the ring are reused)."""
+    fam, X, U, lam, mu, _, curv, ds, z0 = inputs
+    H = fam.H
+    rng = np.random.default_rng(1)
+    kff = torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.02, dtype=torch.float32)
+    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, 10)) * 0.01, dtype=torch.float32)
+    alphas = ALILQRConfig(n_alpha=n_alpha).alphas()
+    soas = [cuda_lib.soa(t) for t in (X, U, kff, Kfb, lam, mu, curv, ds, z0)]
+    params = cuda_lib.family_params(fam)
+    al = np.asarray(alphas, np.float32)
+    costs = {}
+    for staged in (0, 1):
+        out = torch.full((n_alpha, B), float("nan"))
+        rc = kernel_lib.vct_host_linesearch(params.ctypes.data, al.ctypes.data, n_alpha,
+                                            *[t.data_ptr() for t in soas], out.data_ptr(), B, H,
+                                            staged)
+        assert rc == 0
+        costs[staged] = out
+    assert _same_bits(costs[1], costs[0])
+    ref = linesearch_costs_plain(fam, alphas, X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    assert torch.equal(torch.isposinf(costs[1]), torch.isposinf(ref))
+    assert torch.isposinf(costs[1][:, :2]).all()
+    fin = torch.isfinite(ref)
+    assert ((costs[1][fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1.0)).max() < LS_RTOL

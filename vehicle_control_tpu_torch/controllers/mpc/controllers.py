@@ -76,13 +76,16 @@ def _kernels(problem: MPCProblem, solver_cfg: ALILQRConfig) -> dict:
     return dict(ls_kernel=ls_kernel, backward_kernel=BackwardKernelFM(fam))
 
 
-def make_mpc_step(problem: MPCProblem, solver_cfg: ALILQRConfig):
+def make_mpc_step(problem: MPCProblem, solver_cfg: ALILQRConfig, kernels=None):
     """Build the batched per-control-step function.
 
-    The returned ``step`` carries ``step.kernels``: the kernel wrappers it
-    launches (see ``_kernels``), whose ``launches`` count them.
+    ``kernels``: the kernel wrappers as ``build_solver``'s keywords; by
+    default those the config's flags pick (``_kernels``).  The returned
+    ``step`` carries ``step.kernels``: the kernel wrappers it launches, whose
+    ``launches`` count them.
     """
-    kernels = _kernels(problem, solver_cfg)
+    if kernels is None:
+        kernels = _kernels(problem, solver_cfg)
     solve = build_solver(
         problem.fns, problem.horizon, solver_cfg, problem.u_lo, problem.u_hi, **kernels
     )

@@ -1,16 +1,26 @@
-// Host driver of kernels 2 and 3: the lane bodies of csrc/team.cuh and
-// csrc/solve_fm.cu built with a host C++ compiler, so their team code runs
-// on the CPU.  Each scenario's team is emulated in one thread: uniform code
-// runs once, and each phase runs its members one after another, first to
-// last or (vct_host_set_member_order(1)) last to first, on a shared area of
-// TEAM_FLOATS floats.  Same arguments and layouts as vct_backward_fm and
-// vct_solve_fm, without the stream.
+// Host driver of kernels 1-4: their lane bodies built with a host C++
+// compiler, so their phases, teams and direction groups run on the CPU.
+// - Kernels 2 and 3 (csrc/team.cuh, csrc/solve_fm.cu): each scenario's team
+//   is emulated in one thread: uniform code runs once, and each phase runs
+//   its members one after another, first to last or
+//   (vct_host_set_member_order(1)) last to first, on a shared area of
+//   TEAM_FLOATS floats.
+// - Kernel 4 (csrc/derivs_fm.cu): one direction group at a time over every
+//   (stage, scenario), or all directions at once (stage_derivs, what
+//   kernels 2 and 3 compute).
+// - Kernel 1 (csrc/rollout_fm.cu): each block's phases in the kernel's
+//   order (the next chunk's records staged, this chunk's rollouts into the
+//   ring, the previous chunk's costs from it), or one lane at a time
+//   (linesearch_lane, every stage's candidate_stage in order).
+// Same arguments and layouts as the kernels' launchers, without the stream.
 //
 //     g++ -std=c++17 -O1 -shared -fPIC -I csrc -o libvct_host.so csrc/host_driver.cpp
 //
 // tests/test_torch_host_kernels.py builds and loads it.
 #include <vector>
 
+#include "derivs_fm.cu"
+#include "rollout_fm.cu"
 #include "solve_fm.cu"
 
 extern "C" int vct_host_team() { return TEAM; }
@@ -45,5 +55,115 @@ extern "C" int vct_host_solve(const float* params, const void* config, const flo
   std::vector<float> sh(TEAM_FLOATS);
   for (int b = 0; b < B; ++b)
     solve_lane(Team{sh.data(), 0u, 0}, b, B, H, cfg, p, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats);
+  return 0;
+}
+
+// kernel 4 at (stage n, scenario b) with every direction at once: stage_derivs
+static void derivs_all_lane(int n, int b, int B, int H, const STParams& p, const float* x,
+                            const float* u, const float* lam, const float* mu, const float* curv,
+                            const float* ds, float* g_out, float* hw_out, float* jm_out) {
+  float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
+  for (int i = 0; i < NZ; ++i) wf[i] = x[at2(n, i, NZ, b, B)];
+  for (int j = 0; j < NU; ++j) wf[NZ + j] = u[at2(n, j, NU, b, B)];
+  for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
+  with_kind(stage_kind(n, H, p), [&](auto kc) {
+    stage_derivs<decltype(kc)::value>(n, H, wf, lamv, mu[b], curv[n * B + b], ds[n * B + b],
+                                      ds[(n > 0 ? n - 1 : 0) * B + b],
+                                      ds[seam_stage(p) * B + b], p, g, Hw, Jm);
+  });
+  for (int r = 0; r < NW; ++r) g_out[at2(n, r, NW, b, B)] = g[r];
+  for (int r = 0; r < NW; ++r)
+    for (int c = 0; c < NW; ++c) hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hw[r][c];
+  for (int r = 0; r < NZ; ++r)
+    for (int c = 0; c < NW; ++c) jm_out[((size_t)(n * NZ + r) * NW + c) * B + b] = Jm[r][c];
+}
+
+extern "C" int vct_host_deriv_groups() { return DERIV_GROUPS; }
+
+// kernel 4's outputs: group < 0 every direction at once, else direction
+// group `group` of DERIV_GROUPS alone (it writes only the entries it owns)
+extern "C" int vct_host_derivs(const float* params, const float* x, const float* u,
+                               const float* lam, const float* mu, const float* curv,
+                               const float* ds, float* g, float* hw, float* jm, int B, int H,
+                               int group) {
+  if (B < 1 || H < 1 || group >= DERIV_GROUPS) return 1;
+  STParams p;
+  memcpy(&p, params, sizeof(STParams));
+  for (int n = 0; n < H; ++n)
+    for (int b = 0; b < B; ++b) {
+      if (group < 0)
+        derivs_all_lane(n, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
+      else
+        derivs_lane(group, n, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
+    }
+  return 0;
+}
+
+// kernel 1's one-lane semantics: the line-search cost of step size alpha
+// for scenario b, every stage's candidate_stage in order
+static void linesearch_lane(int b, int B, int H, float alpha, const LsInputs& in,
+                            float* cost_out, const STParams& p) {
+  float z[NZ];
+  for (int i = 0; i < NZ; ++i) z[i] = in.z0[i * B + b];
+  float m = in.mu[b], acc = 0.f;
+  for_each_stage(H, p, [&](int n, auto kc) {
+    Stage s;
+    load_stage(n, b, B, in.xref, in.uref, in.kff, in.kfb, in.lam, in.curv, in.ds, p, s);
+    candidate_stage<decltype(kc)::value>(n, H, alpha, m, s, p, z, acc);
+  });
+  cost_out[b] = vct::finite(acc) ? acc : INFINITY;
+}
+
+// kernel 1's costs (A, B): staged, each block's phases in the kernel's
+// order (chunk c + 1's records staged, chunk c's rollouts, chunk c - 1's
+// costs); else linesearch_lane for each (step size, scenario)
+extern "C" int vct_host_linesearch(const float* params, const float* alphas, int A,
+                                   const float* xref, const float* uref, const float* kff,
+                                   const float* kfb, const float* lam, const float* mu,
+                                   const float* curv, const float* ds, const float* z0,
+                                   float* costs, int B, int H, int staged) {
+  if (A < 1 || A > MAX_ALPHA || B < 1 || H < 1) return 1;
+  STParams p;
+  memcpy(&p, params, sizeof(STParams));
+  const LsInputs in{xref, uref, kff, kfb, lam, mu, curv, ds, z0};
+  if (!staged) {
+    for (int a = 0; a < A; ++a)
+      for (int b = 0; b < B; ++b) linesearch_lane(b, B, H, alphas[a], in, costs + (size_t)a * B, p);
+    return 0;
+  }
+  const int W = ls_warps(A), C = ls_chunk(A), chunks = (H + C - 1) / C;
+  std::vector<float> smem(ls_smem(A, C) / sizeof(float));
+  auto stage = [&](int c, int b0) {  // every warp's share of chunk c's records
+    const int lo = c * C, hi = lo + C < H ? lo + C : H;
+    for (int w = 0; w < 2 * W; ++w)
+      for (int l = 0; l < LS_SCEN; ++l)
+        stage_records(in, p, lo, hi, b0, B, ls_records(smem.data(), C, c), w, 2 * W, l);
+  };
+  for (int b0 = 0; b0 < B; b0 += LS_SCEN) {
+    const int lanes = B - b0 < LS_SCEN ? B - b0 : LS_SCEN;
+    std::vector<float> z((size_t)A * LS_SCEN * NZ), acc((size_t)A * LS_SCEN, 0.f);
+    for (int a = 0; a < A; ++a)
+      for (int l = 0; l < lanes; ++l)
+        for (int i = 0; i < NZ; ++i) z[((size_t)a * LS_SCEN + l) * NZ + i] = z0[i * B + b0 + l];
+    stage(0, b0);
+    for (int c = 0; c <= chunks; ++c) {
+      if (c + 1 < chunks) stage(c + 1, b0);
+      for (int roller = 1; roller >= 0; --roller) {  // the rollouts, then the costs
+        const int cc = roller ? c : c - 1;
+        if (cc < 0 || cc >= chunks) continue;
+        const int lo = cc * C, hi = lo + C < H ? lo + C : H;
+        for (int a = 0; a < A; ++a)
+          for (int l = 0; l < lanes; ++l)
+            candidate_chunk(roller, lo, hi, H, alphas[a], mu[b0 + l],
+                            ls_records(smem.data(), C, cc), ls_ring(smem.data(), C, A, cc, a), l,
+                            p, &z[((size_t)a * LS_SCEN + l) * NZ], acc[(size_t)a * LS_SCEN + l]);
+      }
+    }
+    for (int a = 0; a < A; ++a)
+      for (int l = 0; l < lanes; ++l) {
+        const float v = acc[(size_t)a * LS_SCEN + l];
+        costs[(size_t)a * B + b0 + l] = vct::finite(v) ? v : INFINITY;
+      }
+  }
   return 0;
 }

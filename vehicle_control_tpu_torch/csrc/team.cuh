@@ -321,25 +321,13 @@ cudaError_t team_smem_setup(Kernel* kernel) {
                               TEAM_SMEM_BYTES);
 }
 
-// the launch shape of a team kernel at B scenarios, and what the card
-// makes of it: out = {team, threads per launch, block, registers, local
-// (stack) bytes per thread, static shared bytes, dynamic shared bytes per
-// block, resident blocks per SM, resident warps per SM}
+// the launch shape of a team kernel at B scenarios (kernel_launch_info;
+// the lead number is TEAM)
 template <class Kernel>
 int team_launch_info(Kernel* kernel, int B, int* out) {
   cudaError_t rc = team_smem_setup(kernel);
-  cudaFuncAttributes fa;
-  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&fa, kernel);
-  int blocks = 0;
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TEAM_BLOCK,
-                                                       TEAM_SMEM_BYTES);
   if (rc != cudaSuccess) return (int)rc;
-  const int vals[9] = {TEAM, B * TEAM, TEAM_BLOCK, fa.numRegs, (int)fa.localSizeBytes,
-                       (int)fa.sharedSizeBytes, TEAM_SMEM_BYTES, blocks,
-                       blocks * TEAM_BLOCK / 32};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
-  return 0;
+  return kernel_launch_info(kernel, TEAM, (long long)B * TEAM, TEAM_BLOCK, TEAM_SMEM_BYTES, out);
 }
 
 #endif

@@ -33,14 +33,15 @@ def aligned_carry(problem, states, dtype=None) -> MPCCarry:
     return MPCCarry(X0, U0, X0.new_zeros(X0.shape[0], problem.horizon, problem.nc))
 
 
-def make_batched_racing_step(problem, solver_cfg, transition, track_data, dt, s_index):
+def make_batched_racing_step(problem, solver_cfg, transition, track_data, dt, s_index,
+                             kernels=None):
     """One batched closed-loop step: B MPC solves + B plant steps.
 
     ``step(carries, states) -> (carries', next_states, actions, infos)``;
-    ``track_data`` must be on the states' device.  ``step.kernels`` are the
-    MPC step's kernel wrappers.
+    ``track_data`` must be on the states' device.  ``kernels``: as
+    ``make_mpc_step``'s.  ``step.kernels`` are the MPC step's kernel wrappers.
     """
-    mpc_step = make_mpc_step(problem, solver_cfg)
+    mpc_step = make_mpc_step(problem, solver_cfg, kernels)
 
     def step(carry, state):
         mc, action, info = mpc_step(carry, state)

@@ -168,9 +168,11 @@ SIGNATURES = {
     "vct_solve_config_size": ([], _I),
     # (params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream)
     "vct_derivs_fm": ([_P] + [_P] * 9 + [_I, _I, _P], _I),
-    # (B, out)
+    # launch shapes: (B, out), (B, H, out), (B, A, out)
     "vct_solve_fm_info": ([_I, _P], _I),
     "vct_backward_fm_info": ([_I, _P], _I),
+    "vct_derivs_fm_info": ([_I, _I, _P], _I),
+    "vct_linesearch_fm_info": ([_I, _I, _P], _I),
 }
 
 
@@ -193,19 +195,23 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-# csrc/team.cuh: team_launch_info, the launch shape of kernels 2 and 3
-LAUNCH_INFO = ("team", "threads", "block", "registers", "stack_bytes", "static_smem_bytes",
+# csrc/singletrack.cuh: kernel_launch_info, a kernel's launch shape; the
+# lead number is the team (kernels 2 and 3), the direction groups (kernel
+# 4) or the scenarios a block (kernel 1)
+LAUNCH_INFO = ("lead", "threads", "block", "registers", "stack_bytes", "static_smem_bytes",
                "smem_bytes_per_block", "blocks_per_sm", "warps_per_sm")
+LEADS = {"vct_solve_fm_info": "team", "vct_backward_fm_info": "team",
+         "vct_derivs_fm_info": "groups", "vct_linesearch_fm_info": "scenarios_per_block"}
 
 
-def launch_info(fn, B: int) -> dict:
-    """A team kernel's launch shape at B scenarios and its residency on the
-    card (``fn``: ``lib.vct_solve_fm_info`` or ``lib.vct_backward_fm_info``)."""
+def launch_info(fn, *shape) -> dict:
+    """A kernel's launch shape and its residency on the card (``fn``: one of
+    the library's ``vct_*_info`` functions; ``shape``: its B, then H or A)."""
     out = (ctypes.c_int * len(LAUNCH_INFO))()
-    rc = fn(B, ctypes.addressof(out))
+    rc = fn(*shape, ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"launch info: CUDA error {rc}")
-    return dict(zip(LAUNCH_INFO, out))
+    return {LEADS[fn.__name__]: out[0], **dict(zip(LAUNCH_INFO[1:], out[1:]))}
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -49,17 +49,23 @@ class DerivsKernelFM:
         shapes = dict(X=(B, H, NZ), U=(B, H, NU), lam=(B, H, NC), mu=(B,), curv=(B, H),
                       ds=(B, H))
         cuda_lib.check_inputs(shapes, ins, X.device)
-        lib = cuda_lib.load_library()
         soas = [cuda_lib.soa(t) for t in ins.values()]
         kw = dict(dtype=torch.float32, device=X.device)
-        g = torch.empty(H, NW, B, **kw)
-        hw = torch.empty(H, NW, NW, B, **kw)
-        jm = torch.empty(H, NZ, NW, B, **kw)
+        outs = (torch.empty(H, NW, B, **kw), torch.empty(H, NW, NW, B, **kw),
+                torch.empty(H, NZ, NW, B, **kw))
+        self.launch(soas, outs)
+        return tuple(t.movedim(-1, 0).contiguous() for t in outs)
+
+    def launch(self, soas, outs):
+        """The kernel alone: inputs already in its layout (x, u, lam, mu,
+        curv, ds as ``cuda_lib.soa`` gives them), outputs (g, hw, jm) of
+        shapes (H, NW, B), (H, NW, NW, B), (H, NZ, NW, B), allocated."""
+        lib = cuda_lib.load_library()
+        B, H = soas[3].shape[0], self.family.H
         rc = lib.vct_derivs_fm(
             self._params.ctypes.data, *[t.data_ptr() for t in soas],
-            g.data_ptr(), hw.data_ptr(), jm.data_ptr(), B, H,
-            torch.cuda.current_stream(X.device).cuda_stream,
+            *[t.data_ptr() for t in outs], B, H,
+            torch.cuda.current_stream(soas[0].device).cuda_stream,
         )
         cuda_lib.check_launch(lib, rc, "derivs_fm")
         self.launches += 1
-        return tuple(t.movedim(-1, 0).contiguous() for t in (g, hw, jm))

@@ -87,14 +87,20 @@ class LinesearchKernelFM:
                       Kfbs=(B, H, NU, NZ), lam=(B, H, NC), mu=(B,), curv=(B, H),
                       ds=(B, H), z0=(B, NZ))
         cuda_lib.check_inputs(shapes, ins, Xref.device)
-        lib = cuda_lib.load_library()
         laid = [self._layout(t) for t in ins.values()]
         costs = torch.empty(A, B, dtype=torch.float32, device=Xref.device)
+        self.launch(laid, costs)
+        return costs
+
+    def launch(self, laid, costs):
+        """The kernel alone: inputs already in its layout (``_layout`` of
+        Xref, Uref, kffs, Kfbs, lam, mu, curv, ds, z0), costs (A, B) allocated."""
+        lib = cuda_lib.load_library()
+        B, H = costs.shape[1], self.family.H
         rc = getattr(lib, self._entry)(
-            self._params.ctypes.data, self._alphas.ctypes.data, A,
+            self._params.ctypes.data, self._alphas.ctypes.data, len(self.alphas),
             *[t.data_ptr() for t in laid], costs.data_ptr(), B, H,
-            torch.cuda.current_stream(Xref.device).cuda_stream,
+            torch.cuda.current_stream(costs.device).cuda_stream,
         )
         cuda_lib.check_launch(lib, rc, self._entry)
         self.launches += 1
-        return costs
