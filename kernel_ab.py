@@ -58,7 +58,6 @@ KERNELS = {  # kernel -> (C entry, source, launch-shape entry or None)
 VARIANTS = {  # build -> (its kernels, extra nvcc flags); the port's library is "port"
     "team8": (("solve", "backward"), ("-DVCT_TEAM=8",)),
     "team4_no_fma": (("solve", "backward"), ("-fmad=false",)),
-    "groups2": (("derivs",), ("-DVCT_DERIV_GROUPS=2",)),
 }
 _, _, _ST_HORIZON, _ST_BUDGET = chip_smoke.FAMILIES["singletrack"]
 LAUNCH_SHAPE = {"derivs": (_ST_HORIZON["horizon"],),  # the printed launch shapes: H, A

@@ -3,12 +3,16 @@ tensors on the CPU (no card, no JAX).
 
 Where the kernel misses a gate against the plain f32 version on a lane, the
 plain version in f64 decides: the lane passes only if the witness sides with
-the kernel, and at most ``WITNESS_SHARE`` of a gate's lanes may be decided
-so.  Kernels 1 and 5: +inf on a rollout in one f32 version only; kernel 3
-check (i): a lane beyond SOLVE_TOL.
+the kernel (or, for +inf, finds the plain f32 version itself off by more
+than LS_RTOL), and at most ``WITNESS_SHARE`` of a gate's lanes may be
+decided so.  Kernels 1 and 5: +inf on a rollout in one f32 version only;
+kernel 3 check (i): a lane beyond SOLVE_TOL.
 """
 
 import math
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -42,6 +46,23 @@ def test_inf_witness_sides_with_kernel():
 def test_inf_witness_sides_with_plain_fails():
     kern, plain, f64 = _costs()
     kern[2, 10] = INF
+    with pytest.raises(RuntimeError, match="sides with the plain version on 1 of 1"):
+        chip_smoke.inf_witness("k1", kern, plain, f64)
+
+
+def test_inf_witness_chaotic_rollout():
+    """The kernel crosses the state guard where the plain f32 version and
+    f64 stay finite: it passes only where the plain f32 version is itself
+    off f64 by more than LS_RTOL (the rollout is chaotic in f32)."""
+    kern, plain, f64 = _costs()
+    kern[0, 1435], plain[0, 1435], f64[0, 1435] = INF, 2.019e6, 1.411e13
+    assert chip_smoke.inf_witness("k1", kern, plain, f64).startswith("1|0/1435:kernel=inf")
+    plain[0, 1435] = 1.411e13 * (1 + 2 * chip_smoke.LS_RTOL)  # still off: passes
+    assert chip_smoke.inf_witness("k1", kern, plain, f64).startswith("1|")
+    plain[0, 1435] = 1.411e13 * (1 + 0.5 * chip_smoke.LS_RTOL)  # a reference: fails
+    with pytest.raises(RuntimeError, match="sides with the plain version on 1 of 1"):
+        chip_smoke.inf_witness("k1", kern, plain, f64)
+    kern[0, 1435], plain[0, 1435], f64[0, 1435] = 3.0, INF, INF  # plain and f64 +inf: fails
     with pytest.raises(RuntimeError, match="sides with the plain version on 1 of 1"):
         chip_smoke.inf_witness("k1", kern, plain, f64)
 
@@ -91,3 +112,17 @@ def test_solve_witness_cap():
         chip_smoke.solve_witness("k3", err, kern64, plain64)
     err[0] = 1e-6
     assert chip_smoke.solve_witness("k3", err, kern64, plain64).startswith(f"{n - 1}|")
+
+
+def test_scripts_import_no_jax():
+    """chip_smoke.py and kernel_ab.py import neither jax nor the JAX package."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\nimport chip_smoke, kernel_ab\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'vehicle_control_tpu')]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -2,9 +2,9 @@
 
 ``csrc/host_driver.cpp`` compiles the lane bodies of ``csrc/team.cuh``
 (kernel 2, the backward pass), ``csrc/solve_fm.cu`` (kernel 3, the whole
-solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives by direction
-group) and ``csrc/rollout_fm.cu`` (kernel 1, the line search from staged
-stage records) with g++ into ``build/host/``; each scenario's team of TEAM
+solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives) and
+``csrc/rollout_fm.cu`` (kernel 1, the line search from staged stage
+records) with g++ into ``build/host/``; each scenario's team of TEAM
 members is emulated in one thread, phase by phase, and kernel 1's blocks
 phase by phase.  Two builds, compiled side by side: the kernels' team of 4,
 and teams of 8.  The test decides whether g++ exists when it runs, and skips
@@ -23,9 +23,8 @@ beyond the state guard and from a NaN.  Tolerances (those of
   and counts only);
 - early_exit x ls_fast_path, and the members run in the other order, change
   no output bit;
-- kernel 4: its direction groups, run one after another in either order,
-  give the all-directions derivatives (stage_derivs, within DV_TOL of the
-  plain version) bit for bit, and each entry is written by exactly one group;
+- kernel 4's lane at inputs where the Hessian's second-order block is
+  live: g, Hw and J within DV_TOL of each lane's largest magnitude;
 - kernel 1: the staged blocks (rollout and cost warps, one chunk apart)
   give the one-lane rollouts' costs (linesearch_lane, within LS_RTOL of the
   plain version) bit for bit, with step sizes that fit the warps of a block
@@ -103,7 +102,7 @@ def host_libs():
         lib.vct_host_backward.argtypes = [P] + [P] * 11 + [I, I]
         lib.vct_host_solve.argtypes = [P, P] + [P] * 11 + [I, I]
         lib.vct_host_set_member_order.argtypes = [I]
-        lib.vct_host_derivs.argtypes = [P] * 10 + [I, I, I]
+        lib.vct_host_derivs.argtypes = [P] * 10 + [I, I]
         lib.vct_host_linesearch.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
         assert lib.vct_host_team() >= 4
@@ -237,20 +236,15 @@ def test_exits_and_member_order_change_no_bit(host_lib, inputs):
     assert all(_same_bits(a, b) for a, b in zip(bw, bw_rev))
 
 
-def host_derivs(lib, fam, X, U, lam, mu, curv, ds, group, out=None):
-    """Kernel 4's outputs (g, Hw, J) in its (H, ..., B) layout: group < 0
-    every direction at once, else that direction group alone, into ``out``
-    (default: NaN-filled)."""
+def host_derivs(lib, fam, X, U, lam, mu, curv, ds):
+    """Kernel 4's outputs (g, Hw, J) as DerivsKernelFM returns them."""
     H, NW = fam.H, 12
-    if out is None:
-        out = tuple(torch.full(s, float("nan")) for s in ((H, NW, B), (H, NW, NW, B),
-                                                        (H, 10, NW, B)))
+    out = (torch.empty(H, NW, B), torch.empty(H, NW, NW, B), torch.empty(H, 10, NW, B))
     soas = [cuda_lib.soa(t) for t in (X, U, lam, mu, curv, ds)]
     params = cuda_lib.family_params(fam)
-    rc = lib.vct_host_derivs(params.ctypes.data, *[t.data_ptr() for t in soas + list(out)],
-                             B, H, group)
+    rc = lib.vct_host_derivs(params.ctypes.data, *[t.data_ptr() for t in soas + list(out)], B, H)
     assert rc == 0
-    return out
+    return tuple(t.movedim(-1, 0) for t in out)
 
 
 def _active(inputs):
@@ -266,32 +260,15 @@ def _active(inputs):
     return fam, X, U, lam * 300.0, mu, curv, ds
 
 
-def test_derivs_groups_give_all_directions(kernel_lib, inputs):
+def test_derivs_lane_matches_plain(kernel_lib, inputs):
     fam, X, U, lam, mu, curv, ds = _active(inputs)
-    ref = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds, -1)
-    plain = derivs_plain(fam, X, U, lam, mu, curv, ds)
-    for a, b in zip(ref, plain):
+    got = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds)
+    ref = derivs_plain(fam, X, U, lam, mu, curv, ds)
+    for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
-        assert _lane_err(a.movedim(-1, 0), b).max().item() < DV_TOL
-    block = ref[1][:fam.N][:, [0, 1, 2, 3, 10]][:, :, [0, 1, 2, 3, 10]]
+        assert _lane_err(a, b).max().item() < DV_TOL
+    block = got[1][:, :fam.N][:, :, [0, 1, 2, 3, 10]][..., [0, 1, 2, 3, 10]]
     assert (block != 0).float().mean() > 0.8  # the second-order block is live
-    G = kernel_lib.vct_host_deriv_groups()
-    assert G in (2, 4)
-    for order in (range(G), reversed(range(G))):
-        out = None
-        for group in order:
-            out = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds, group, out)
-        assert all(_same_bits(a, b) for a, b in zip(out, ref))
-
-
-def test_derivs_groups_write_each_entry_once(kernel_lib, inputs):
-    fam, X, U, lam, mu, curv, ds = _active(inputs)
-    writes = None
-    for group in range(kernel_lib.vct_host_deriv_groups()):
-        out = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds, group)
-        w = [(~torch.isnan(t)).int() for t in out]
-        writes = w if writes is None else [a + b for a, b in zip(writes, w)]
-    assert all(bool((t == 1).all()) for t in writes)
 
 
 @pytest.mark.parametrize("n_alpha", [6, 12])

@@ -5,34 +5,30 @@
 // (vehicle_control_tpu/solvers/derivs_kernel_fm.py).  For every (stage,
 // scenario): the AL-cost gradient g (NW), the unsymmetrized Hessian Hw
 // (NW x NW, Hw[r][c] = d2L/dw_r dw_c) and the dynamics Jacobian J (NZ x NW)
-// over w = (z, u), the derivatives of stage_derivs in singletrack.cuh (what
-// kernels 2 and 3 compute at every stage of their backward sweeps), for the
-// kind of the thread's stage.  Plain version: derivs_plain.
+// over w = (z, u), from stage_derivs in singletrack.cuh (the function kernel
+// 2 calls at every stage of its backward sweep), specialised for the kind
+// of the thread's stage.  Plain version: derivs_plain.
 //
-// What bounds it on an H100: stages are independent, so H x B lanes run at
-// once.  Each writes (12 + 144 + 120) floats: B*H*276*4 bytes, 135.7 MB at
-// B=4096, H=30, or 40.5 us at 3.35 TB/s; its jets are roughly 4e4 f32
-// operations, 4.9 GFLOP, or 73 us at 67 TFLOP/s.  Neither binds: one
-// thread's derivatives in all directions at once carry jets of 13 floats
-// (the 12-input gradient), 9 (the 8-column RK4 Jacobian) and 31 (the 5x5
-// second-order block) a value, whose working set spills to local memory,
-// so the kernel is bound by latency on local memory.
-//
-// Design: the derivatives split by jet direction (singletrack.cuh,
-// direction groups).  DERIV_GROUPS = G threads share a (stage, scenario):
-// group I carries a G-th of the seeds of each first-order jet (at G = 4
-// the gradient's 12 as Jet<3,1>, the RK4 Jacobian's 8 as Jet<2,1>, the
-// seam's and the point-mass stage's 5 as one or two) and second-order
-// triples of the 5x5 block (Jet<3,2>, 13 floats a value), and writes only
-// the entries it owns; the value chain is recomputed by each group.  Its
-// al_cost and rk4_step are inlined, so no jet crosses a call.  One thread
-// per (scenario, stage, group): a block of 128 threads is 4 warps, each 32
-// consecutive scenarios of one group and one stage, so the groups do not
-// diverge inside a warp, and every owned output row is one coalesced
-// 128-byte store in the (stage, field, scenario) layout; the wrapper
-// permutes them to (B, H, ...).  No shared memory, no barrier.
-// G = 4 over G = 2: (measured in kernel_ab.py; see the notes kept in
-// PERF.md).  At B = 4096 and H = 30: 491,520 threads.
+// What bounds it on an H100: stages are independent, so H x B threads run
+// at once.  Each writes (12 + 144 + 120) floats: B*H*276*4 bytes, 135.7 MB
+// at B=4096, H=30, or 40.5 us at 3.35 TB/s.  Each computes the three jets of
+// stage_derivs (the 12-input gradient, the 8-column RK4 Jacobian, the 5x5
+// second-order block): roughly 4e4 f32 operations, 4.9 GFLOP at B=4096,
+// H=30, or 73 us at 67 TFLOP/s.  The operations are the larger side there;
+// on the cascade (H=60, two thirds of it point-mass stages with a fraction
+// of the operations) the bytes are.  The kernel runs 14-21x its bound, at
+// 255 registers and a 3.3 KB stack (the jets and the outputs in local
+// memory), 8 warps an SM.
+// Design: one thread per (stage, scenario) on a grid (ceil(B/128), H), the
+// outputs in the struct-of-arrays layout (stage, field, scenario) so a warp
+// writes 32 consecutive floats; the wrapper permutes them to (B, H, ...).
+// Splitting a stage's derivatives over 2, 3 or 4 threads by jet direction
+// (a share of each jet's seeds, the second-order block as Jet<3,2> triples,
+// or whole jets a thread; register-resident, 168-255 registers, 12 warps
+// an SM at 4) was measured slower on the single track and no faster on the
+// cascade: each thread repeats the value chain, the triples cost ~1.5x the
+// 5x5 block's operations, and a register-resident thread was no faster per
+// operation, so the stack is not what binds it (PERF.md, kernel_ab.py).
 // The lane body is plain C++ (VCT_HD), so a host compiler builds it for
 // rehearsal (csrc/host_driver.cpp); the kernel and its launcher are CUDA
 // only.
@@ -43,95 +39,40 @@
 
 #include "singletrack.cuh"
 
-#ifndef VCT_DERIV_GROUPS
-#define VCT_DERIV_GROUPS 4
-#endif
-
 using namespace vct;
 
-constexpr int DERIV_GROUPS = VCT_DERIV_GROUPS;  // direction groups a (stage, scenario)
-static_assert(DERIV_GROUPS == 1 || DERIV_GROUPS == 2 || DERIV_GROUPS == 4, "G of 1, 2 or 4");
-constexpr int DV_BLOCK = 128;  // threads a block: 4 warps of 32 scenarios
-
-template <int I>
-struct GroupC {
-  static constexpr int value = I;
-};
-
-// f(GroupC<i>{}) for group i of G
-template <int G, int I = 0, class F>
-VCT_HD void with_group(int i, F&& f) {
-  if constexpr (I < G) {
-    if (i == I)
-      f(GroupC<I>{});
-    else
-      with_group<G, I + 1>(i, f);
-  }
-}
-
-// group I of G of kernel 4 at (stage n, scenario b): the entries it owns.
-// Inputs x (H, NZ, B), u (H, NU, B), lam (H, NC, B), mu (B), curv and ds
-// (H, B); outputs g (H, NW, B), hw (H, NW, NW, B) and jm (H, NZ, NW, B)
-template <int G, int I>
-VCT_HD void derivs_group_lane(int n, int b, int B, int H, const STParams& p, const float* x,
-                              const float* u, const float* lam, const float* mu,
-                              const float* curv, const float* ds, float* g_out, float* hw_out,
-                              float* jm_out) {
+// kernel 4 at (stage n, scenario b).  Inputs x (H, NZ, B), u (H, NU, B),
+// lam (H, NC, B), mu (B), curv and ds (H, B); outputs g (H, NW, B),
+// hw (H, NW, NW, B) and jm (H, NZ, NW, B)
+VCT_HD void derivs_lane(int n, int b, int B, int H, const STParams& p, const float* x,
+                        const float* u, const float* lam, const float* mu, const float* curv,
+                        const float* ds, float* g_out, float* hw_out, float* jm_out) {
+  float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
+  for (int i = 0; i < NZ; ++i) wf[i] = x[at2(n, i, NZ, b, B)];
+  for (int j = 0; j < NU; ++j) wf[NZ + j] = u[at2(n, j, NU, b, B)];
+  for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
   with_kind(stage_kind(n, H, p), [&](auto kc) {
-    // the arrays are the kind's own (the compiler may keep each kind's body
-    // a function of its own), so they can stay in registers
-    constexpr int K = decltype(kc)::value;
-    float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
-    for (int i = 0; i < NZ; ++i) wf[i] = x[at2(n, i, NZ, b, B)];
-    for (int j = 0; j < NU; ++j) wf[NZ + j] = u[at2(n, j, NU, b, B)];
-    for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-    derivs_dirs<K, G, I>(n, H, wf, lamv, mu[b], curv[n * B + b], ds[n * B + b],
-                         ds[(n > 0 ? n - 1 : 0) * B + b], ds[seam_stage(p) * B + b], p, g, Hw,
-                         Jm);
-    // the owned entries, unrolled to constant indices (the arrays stay in registers)
-    VCT_UNROLL
-    for (int r = 0; r < NW; ++r)
-      if (owns_g<G, I>(r)) g_out[at2(n, r, NW, b, B)] = g[r];
-    VCT_UNROLL
-    for (int r = 0; r < NW; ++r) {
-      VCT_UNROLL
-      for (int c = 0; c < NW; ++c)
-        if (owns_hw<K, G, I>(r, c)) hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hw[r][c];
-    }
-    VCT_UNROLL
-    for (int r = 0; r < NZ; ++r) {
-      VCT_UNROLL
-      for (int c = 0; c < NW; ++c)
-        if (owns_jm<K, G, I>(c)) jm_out[((size_t)(n * NZ + r) * NW + c) * B + b] = Jm[r][c];
-    }
+    stage_derivs<decltype(kc)::value>(n, H, wf, lamv, mu[b], curv[n * B + b], ds[n * B + b],
+                                      ds[(n > 0 ? n - 1 : 0) * B + b],
+                                      ds[seam_stage(p) * B + b], p, g, Hw, Jm);
   });
+  for (int r = 0; r < NW; ++r) g_out[at2(n, r, NW, b, B)] = g[r];
+  for (int r = 0; r < NW; ++r)
+    for (int c = 0; c < NW; ++c) hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hw[r][c];
+  for (int r = 0; r < NZ; ++r)
+    for (int c = 0; c < NW; ++c) jm_out[((size_t)(n * NZ + r) * NW + c) * B + b] = Jm[r][c];
 }
-
-// kernel 4's lane: direction group `group` of DERIV_GROUPS at (stage n, scenario b)
-VCT_HD void derivs_lane(int group, int n, int b, int B, int H, const STParams& p,
-                        const float* x, const float* u, const float* lam, const float* mu,
-                        const float* curv, const float* ds, float* g, float* hw, float* jm) {
-  with_group<DERIV_GROUPS>(group, [&](auto gc) {
-    derivs_group_lane<DERIV_GROUPS, decltype(gc)::value>(n, b, B, H, p, x, u, lam, mu, curv, ds,
-                                                         g, hw, jm);
-  });
-}
-
-// the scenario tiles of 32 a block holds, and the blocks for B scenarios
-constexpr int DV_TILES = DV_BLOCK / 32 / DERIV_GROUPS;
-VCT_HD int derivs_blocks(int B) { return ((B + 31) / 32 + DV_TILES - 1) / DV_TILES; }
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(DV_BLOCK) derivs_fm_kernel(
+__global__ void __launch_bounds__(128) derivs_fm_kernel(
     STParams p, const float* __restrict__ x, const float* __restrict__ u,
     const float* __restrict__ lam, const float* __restrict__ mu, const float* __restrict__ curv,
     const float* __restrict__ ds, float* __restrict__ g, float* __restrict__ hw,
     float* __restrict__ jm, int B, int H) {
-  const int warp = threadIdx.x >> 5, group = warp % DERIV_GROUPS;
-  const int b = (blockIdx.x * DV_TILES + warp / DERIV_GROUPS) * 32 + (threadIdx.x & 31);
+  int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  derivs_lane(group, blockIdx.y, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
+  derivs_lane(blockIdx.y, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
 }
 
 extern "C" int vct_derivs_fm(const float* params, const float* x, const float* u,
@@ -141,17 +82,16 @@ extern "C" int vct_derivs_fm(const float* params, const float* x, const float* u
   if (B < 1 || H < 1 || H > 65535) return (int)cudaErrorInvalidValue;
   STParams p;
   memcpy(&p, params, sizeof(STParams));
-  dim3 grid(derivs_blocks(B), H);
-  derivs_fm_kernel<<<grid, DV_BLOCK, 0, (cudaStream_t)stream>>>(p, x, u, lam, mu, curv, ds, g, hw,
-                                                                jm, B, H);
+  dim3 grid((B + 127) / 128, H);
+  derivs_fm_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(p, x, u, lam, mu, curv, ds, g, hw, jm,
+                                                           B, H);
   return (int)cudaGetLastError();
 }
 
 // the launch shape at B scenarios and H stages (singletrack.cuh:
-// kernel_launch_info; the lead number is G)
+// kernel_launch_info; the lead number is the threads a (stage, scenario))
 extern "C" int vct_derivs_fm_info(int B, int H, int* out) {
-  return kernel_launch_info(derivs_fm_kernel, DERIV_GROUPS, (long long)B * H * DERIV_GROUPS,
-                            DV_BLOCK, 0, out);
+  return kernel_launch_info(derivs_fm_kernel, 1, (long long)B * H, 128, 0, out);
 }
 
 #endif

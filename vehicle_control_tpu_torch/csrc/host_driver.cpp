@@ -5,9 +5,7 @@
 //   its members one after another, first to last or
 //   (vct_host_set_member_order(1)) last to first, on a shared area of
 //   TEAM_FLOATS floats.
-// - Kernel 4 (csrc/derivs_fm.cu): one direction group at a time over every
-//   (stage, scenario), or all directions at once (stage_derivs, what
-//   kernels 2 and 3 compute).
+// - Kernel 4 (csrc/derivs_fm.cu): its lane over every (stage, scenario).
 // - Kernel 1 (csrc/rollout_fm.cu): each block's phases in the kernel's
 //   order (the next chunk's records staged, this chunk's rollouts into the
 //   ring, the previous chunk's costs from it), or one lane at a time
@@ -58,44 +56,15 @@ extern "C" int vct_host_solve(const float* params, const void* config, const flo
   return 0;
 }
 
-// kernel 4 at (stage n, scenario b) with every direction at once: stage_derivs
-static void derivs_all_lane(int n, int b, int B, int H, const STParams& p, const float* x,
-                            const float* u, const float* lam, const float* mu, const float* curv,
-                            const float* ds, float* g_out, float* hw_out, float* jm_out) {
-  float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
-  for (int i = 0; i < NZ; ++i) wf[i] = x[at2(n, i, NZ, b, B)];
-  for (int j = 0; j < NU; ++j) wf[NZ + j] = u[at2(n, j, NU, b, B)];
-  for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-  with_kind(stage_kind(n, H, p), [&](auto kc) {
-    stage_derivs<decltype(kc)::value>(n, H, wf, lamv, mu[b], curv[n * B + b], ds[n * B + b],
-                                      ds[(n > 0 ? n - 1 : 0) * B + b],
-                                      ds[seam_stage(p) * B + b], p, g, Hw, Jm);
-  });
-  for (int r = 0; r < NW; ++r) g_out[at2(n, r, NW, b, B)] = g[r];
-  for (int r = 0; r < NW; ++r)
-    for (int c = 0; c < NW; ++c) hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hw[r][c];
-  for (int r = 0; r < NZ; ++r)
-    for (int c = 0; c < NW; ++c) jm_out[((size_t)(n * NZ + r) * NW + c) * B + b] = Jm[r][c];
-}
-
-extern "C" int vct_host_deriv_groups() { return DERIV_GROUPS; }
-
-// kernel 4's outputs: group < 0 every direction at once, else direction
-// group `group` of DERIV_GROUPS alone (it writes only the entries it owns)
+// kernel 4's outputs, every (stage, scenario) by its lane (derivs_lane)
 extern "C" int vct_host_derivs(const float* params, const float* x, const float* u,
                                const float* lam, const float* mu, const float* curv,
-                               const float* ds, float* g, float* hw, float* jm, int B, int H,
-                               int group) {
-  if (B < 1 || H < 1 || group >= DERIV_GROUPS) return 1;
+                               const float* ds, float* g, float* hw, float* jm, int B, int H) {
+  if (B < 1 || H < 1) return 1;
   STParams p;
   memcpy(&p, params, sizeof(STParams));
   for (int n = 0; n < H; ++n)
-    for (int b = 0; b < B; ++b) {
-      if (group < 0)
-        derivs_all_lane(n, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
-      else
-        derivs_lane(group, n, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
-    }
+    for (int b = 0; b < B; ++b) derivs_lane(n, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
   return 0;
 }
 

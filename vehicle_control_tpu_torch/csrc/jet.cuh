@@ -26,14 +26,6 @@
 #define VCT_HD_NOINLINE static inline
 #endif
 
-// a loop unrolled in full on the card, so that its indices into a local
-// array are constants and the array can live in registers
-#if defined(__CUDACC__)
-#define VCT_UNROLL _Pragma("unroll")
-#else
-#define VCT_UNROLL
-#endif
-
 namespace vct {
 
 template <int N, int K>
@@ -72,13 +64,6 @@ VCT_HD Jet<N, K> seed(float v, int i) {
   Jet<N, K> r = cst<Jet<N, K>>(v);
   r.d[i] = 1.f;
   return r;
-}
-
-// the jet of input v seeded along direction i if the jet carries it (0 <= i
-// < N), else a constant: one input of a jet over a subset of the seeds
-template <int N, int K>
-VCT_HD Jet<N, K> seed_or_cst(float v, int i) {
-  return (i >= 0 && i < N) ? seed<N, K>(v, i) : cst<Jet<N, K>>(v);
 }
 
 VCT_HD float val(float x) { return x; }

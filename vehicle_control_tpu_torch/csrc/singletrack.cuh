@@ -299,10 +299,9 @@ VCT_HD void spatial_prime(const T x[8], const T& Fx, const T& wact, float k,
   out[7] = inv;
 }
 
-// the classical RK4 step of d(state)/ds over the arc step h
 template <class T>
-VCT_HD void rk4_body(const T x[8], const T& Fx, const T& wact, float k, float h,
-                     const STParams& p, T out[8]) {
+VCT_HD_NOINLINE void rk4_step(const T x[8], const T& Fx, const T& wact, float k, float h,
+                              const STParams& p, T out[8]) {
   T k1[8], k2[8], k3[8], k4[8], xs[8];
   spatial_prime(x, Fx, wact, k, p, k1);
   for (int i = 0; i < 8; ++i) xs[i] = x[i] + 0.5f * h * k1[i];
@@ -313,14 +312,6 @@ VCT_HD void rk4_body(const T x[8], const T& Fx, const T& wact, float k, float h,
   spatial_prime(xs, Fx, wact, k, p, k4);
   for (int i = 0; i < 8; ++i)
     out[i] = x[i] + h * (k1[i] + 2.f * k2[i] + 2.f * k3[i] + k4[i]) / 6.f;
-}
-
-// rk4_body, not inlined: the float rollouts (dyn) and the all-directions
-// stage derivatives call it
-template <class T>
-VCT_HD_NOINLINE void rk4_step(const T x[8], const T& Fx, const T& wact, float k, float h,
-                              const STParams& p, T out[8]) {
-  rk4_body(x, Fx, wact, k, h, p, out);
 }
 
 // the handoff at stage N-1 (fm_singletrack.seam_fields): V, s, ey,
@@ -462,22 +453,14 @@ VCT_HD void stage_constraints(int n, const T wf[NW], const STParams& p, T c[NC])
 
 // the family's AL stage cost at stage n of H
 template <int K, class T>
-VCT_HD T al_cost_body(int n, int H, const T wf[NW], const float lam[NC], float mu, float dsn,
-                      float dsp, float dss, const STParams& p) {
+VCT_HD_NOINLINE T al_cost(int n, int H, const T wf[NW], const float lam[NC], float mu, float dsn,
+                          float dsp, float dss, const STParams& p) {
   T cost = stage_cost<K>(n, H, wf, dsn, dsp, dss, p);
   T c[NC];
   stage_constraints<K>(n, wf, p, c);
   T acc = cst<T>(0.f);
   for (int j = 0; j < NC; ++j) acc = acc + phr(c[j], lam[j], mu);
   return cost + acc / (2.f * mu);
-}
-
-// al_cost_body, not inlined: the float rollouts and the all-directions
-// stage derivatives call it
-template <int K, class T>
-VCT_HD_NOINLINE T al_cost(int n, int H, const T wf[NW], const float lam[NC], float mu, float dsn,
-                          float dsp, float dss, const STParams& p) {
-  return al_cost_body<K>(n, H, wf, lam, mu, dsn, dsp, dss, p);
 }
 
 // the family's dynamics at a stage of kind K: the RK4 step with the
@@ -505,112 +488,27 @@ VCT_HD_NOINLINE void dyn(const float wf[NW], float kv, float dsn, const STParams
 }
 
 // -- hand-derived stage derivatives (fm_family.stage_derivs) -------------------------------
-//
-// Direction groups.  A forward-mode jet's derivative along one seed comes
-// from the value and that seed's own entries alone, and a second-order
-// entry (i, j) from those of i and j, so a jet over a subset of the seeds
-// gives the same entries, bit for bit, with fewer floats a value.  The
-// stage derivatives are templated on a direction group: group I of G (G =
-// 1, 2 or 4) carries the seeds [I*M/G, (I+1)*M/G) of each first-order jet
-// over M inputs, and of the second-order block over (Ux, Uy, r, delta,
-// u_Fx) the triples t with t*G/4 == I of {0,1,2}, {0,3,4}, {1,3,4},
-// {2,3,4}, which between them cover every pair.  Group I writes exactly the
-// entries of g, Hw and Jm that it owns (owns_g, owns_hw, owns_jm): those its
-// jets give, and a share of the closed-form entries and structural zeros.
-// G = 1 is one jet over all the seeds and owns every entry: stage_derivs,
-// the code of kernels 2 and 3.
-
-// the group of G that carries seed k of a jet over M inputs
-template <int G>
-VCT_HD constexpr int seed_group(int M, int k) {
-  int g = 0;
-  while ((g + 1) * M / G <= k) ++g;
-  return g;
-}
-
-// block input k of the second-order triple t: {0,1,2}, {0,3,4}, {1,3,4}, {2,3,4}
-VCT_HD constexpr int triple_input(int t, int k) { return t == 0 ? k : (k == 0 ? t - 1 : k + 2); }
-
-// the first triple that holds both block inputs i and j
-VCT_HD constexpr int pair_triple(int i, int j) {
-  return (i < 3 && j < 3) ? 0 : ((i >= 3 && j >= 3) ? 1 : (i < j ? i : j) + 1);
-}
-
-// the block input of stage input w (Ux, Uy, r, delta, u_Fx), or -1
-VCT_HD constexpr int block_input(int w) { return w < 4 ? w : (w == NZ ? 4 : -1); }
-
-// the dynamics Jacobian's seeds at a stage of kind K, and the column of seed s:
-// single track (Ux, Uy, r, delta, ey, epsi, u_Fx, w), the seam (Ux, Uy, r,
-// delta, u_Fx), point mass (V, ey, epsi, u_Fx, u_Fy)
-template <int K>
-VCT_HD constexpr int jac_seeds() { return (K == K_ST || K == K_ST_TERM) ? 8 : 5; }
-template <int K>
-VCT_HD constexpr int jac_col(int s) {
-  if (K == K_ST || K == K_ST_TERM) return s < 4 ? s : (s < 6 ? s + 1 : NZ + s - 6);
-  if (K == K_SEAM) return s < 4 ? s : NZ;
-  return s == 0 ? 0 : (s < 3 ? s + 1 : NZ + s - 3);
-}
-
-// ownership: g by seed, Jm by column (the group of the column's seed, else
-// column mod G), Hw by the triple of a block pair, else by row mod G
-template <int G, int I>
-VCT_HD constexpr bool owns_g(int i) { return seed_group<G>(NW, i) == I; }
-
-template <int K, int G, int I>
-VCT_HD constexpr bool owns_jm(int c) {
-  for (int s = 0; s < jac_seeds<K>(); ++s)
-    if (jac_col<K>(s) == c) return seed_group<G>(jac_seeds<K>(), s) == I;
-  return c % G == I;
-}
-
-template <int K, int G, int I>
-VCT_HD constexpr bool owns_hw(int r, int c) {
-  if (st_kind<K>() && block_input(r) >= 0 && block_input(c) >= 0)
-    return (G == 1 ? 0 : pair_triple(block_input(r), block_input(c)) * G / 4) == I;
-  return r % G == I;
-}
-
-// one pass of second-order jets over M of the nonquadratic block's inputs:
-// all five (M = 5, every pair), or triple T (M = 3, the pairs pair_triple
-// gives it)
-template <int M, int T>
-VCT_HD void st_block_pass(const float wf[NW], const float lam[NC], float mu, const STParams& p,
-                          float Hw[NW][NW]) {
-  using HJ = Jet<M, 2>;
-  const int vidx[5] = {0, 1, 2, 3, NZ};
-  auto in = [](int k) { return M == 5 ? k : triple_input(T, k); };
-  HJ x[8];
-  for (int i = 0; i < 8; ++i) x[i] = cst<HJ>(wf[i]);
-  HJ fx = cst<HJ>(wf[NZ]);
-  for (int k = 0; k < M; ++k) {
-    if (in(k) < 4)
-      x[in(k)] = seed<M, 2>(wf[in(k)], k);
-    else
-      fx = seed<M, 2>(wf[NZ], k);
-  }
-  HJ Fx = fx * FS;
-  HJ c[NC];
-  constraints(x, Fx, cst<HJ>(wf[NZ + 1]), p, c);
-  const int rows[5] = {3, 6, 7, 8, 9};
-  HJ pen = cst<HJ>(0.f);
-  for (int j = 0; j < 5; ++j) pen = pen + phr(c[rows[j]], lam[rows[j]], mu);
-  HJ block = slip_penalty(x, Fx, p) + pen / (2.f * mu);
-  for (int a = 0; a < M; ++a)
-    for (int b = 0; b < M; ++b)
-      if (M == 5 || pair_triple(in(a), in(b)) == T) Hw[vidx[in(a)]][vidx[in(b)]] = block.h[a * M + b];
-}
 
 // the Hessian of a single-track stage's AL cost (the seam's included):
-// second-order jets on the nonquadratic block, the rest in closed form;
-// direction group I of G
-template <int K, int G, int I>
+// second-order jets on the nonquadratic block, the rest in closed form
+template <int K>
 VCT_HD void st_hessian(int n, const float wf[NW], const float lam[NC], float mu, float dsn,
                        float dsp, const STParams& p, float Hw[NW][NW]) {
-  if constexpr (G == 1) {
-    st_block_pass<5, 0>(wf, lam, mu, p, Hw);
-  } else {
-    st_block_pass<3, I * 4 / G>(wf, lam, mu, p, Hw);
-    if constexpr (G == 2) st_block_pass<3, I * 4 / G + 1>(wf, lam, mu, p, Hw);
+  {  // nonquadratic block over (Ux, Uy, r, delta, u_Fx): second-order jets
+    using H5 = Jet<5, 2>;
+    const int vidx[5] = {0, 1, 2, 3, NZ};
+    H5 x[8];
+    for (int i = 0; i < 8; ++i) x[i] = cst<H5>(wf[i]);
+    for (int i = 0; i < 4; ++i) x[i] = seed<5, 2>(wf[i], i);
+    H5 Fx = seed<5, 2>(wf[NZ], 4) * FS;
+    H5 c[NC];
+    constraints(x, Fx, cst<H5>(wf[NZ + 1]), p, c);
+    const int rows[5] = {3, 6, 7, 8, 9};
+    H5 pen = cst<H5>(0.f);
+    for (int j = 0; j < 5; ++j) pen = pen + phr(c[rows[j]], lam[rows[j]], mu);
+    H5 block = slip_penalty(x, Fx, p) + pen / (2.f * mu);
+    for (int i = 0; i < 5; ++i)
+      for (int j = 0; j < 5; ++j) Hw[vidx[i]][vidx[j]] = block.h[i * 5 + j];
   }
   // closed-form quadratic / piecewise-quadratic entries
   float c[NC];
@@ -620,27 +518,23 @@ VCT_HD void st_hessian(int n, const float wf[NW], const float lam[NC], float mu,
   float keep = n == 0 ? 0.f : 1.f;
   float termf = K == K_ST_TERM ? 1.f : 0.f;
   float Ux = wf[0], ey = wf[5];
-  if constexpr (owns_hw<K, G, I>(0, 0))
-    Hw[0][0] += mu * act[0] * keep + termf * (2.f * p.w_speed) * (Ux >= p.max_speed ? 1.f : 0.f);
-  if constexpr (owns_hw<K, G, I>(3, 3)) Hw[3][3] += mu * (act[1] + act[2]) * keep;
-  if constexpr (owns_hw<K, G, I>(NZ + 1, NZ + 1))
-    Hw[NZ + 1][NZ + 1] = 2.f * p.w_w + mu * (act[4] + act[5]);
+  Hw[0][0] += mu * act[0] * keep + termf * (2.f * p.w_speed) * (Ux >= p.max_speed ? 1.f : 0.f);
+  Hw[3][3] += mu * (act[1] + act[2]) * keep;
+  Hw[NZ + 1][NZ + 1] = 2.f * p.w_w + mu * (act[4] + act[5]);
   float blo = ey < p.ey_min ? 1.f : 0.f, bhi = ey > p.ey_max ? 1.f : 0.f;
-  if constexpr (owns_hw<K, G, I>(5, 5))
-    Hw[5][5] += 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev * dsn + termf * (2.f * p.w_ey);
-  if constexpr (owns_hw<K, G, I>(6, 6)) Hw[6][6] = termf * (2.f * p.w_epsi);
+  Hw[5][5] += 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev * dsn + termf * (2.f * p.w_ey);
+  Hw[6][6] = termf * (2.f * p.w_epsi);
   if (n >= 1) {  // Fx slew against the previous action
     float coef = (2.f * p.w_Fx / dsp) * (FS * FS);
-    if constexpr (owns_hw<K, G, I>(8, 8)) Hw[8][8] += coef;
-    if constexpr (owns_hw<K, G, I>(8, NZ)) Hw[8][NZ] -= coef;
-    if constexpr (owns_hw<K, G, I>(NZ, 8)) Hw[NZ][8] -= coef;
-    if constexpr (owns_hw<K, G, I>(NZ, NZ)) Hw[NZ][NZ] += coef;
+    Hw[8][8] += coef;
+    Hw[8][NZ] -= coef;
+    Hw[NZ][8] -= coef;
+    Hw[NZ][NZ] += coef;
   }
 }
 
-// the Hessian of a point-mass stage's AL cost, all in closed form;
-// direction group I of G
-template <int K, int G, int I>
+// the Hessian of a point-mass stage's AL cost, all in closed form
+template <int K>
 VCT_HD void pm_hessian(int n, int H, const float wf[NW], const float lam[NC], float mu,
                        float dsn, float dsp, float dss, const STParams& p, float Hw[NW][NW]) {
   const float fs = 1.f / FS;
@@ -648,150 +542,117 @@ VCT_HD void pm_hessian(int n, int H, const float wf[NW], const float lam[NC], fl
   stage_constraints<K>(n, wf, p, c);
   float V = wf[0], ey = wf[2];
   float blo = ey < p.ey_min_pm ? 1.f : 0.f, bhi = ey > p.ey_max_pm ? 1.f : 0.f;
-  if constexpr (owns_hw<K, G, I>(2, 2))
-    Hw[2][2] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev_pm * dsn;
+  Hw[2][2] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev_pm * dsn;
   // constraint rows: 0 the V floor (linear), 1 the engine power
-  if constexpr (owns_hw<K, G, I>(0, 0)) Hw[0][0] += mu * active(lam[0] + mu * c[0]);
+  Hw[0][0] += mu * active(lam[0] + mu * c[0]);
   float Vm = vmax(V, 1.f);
   float liveV = (V > 1.f ? 1.f : 0.f) + (V == 1.f ? 0.5f : 0.f);  // max's tie rule
   float gV = fs * p.Peng / (Vm * Vm) * liveV;  // d c1 / dV; d c1 / du_Fx = 1
   float lam_hat1 = vmax(lam[1] + mu * c[1], 0.f);
   float a1 = mu * active(lam[1] + mu * c[1]);
-  if constexpr (owns_hw<K, G, I>(0, 0))
-    Hw[0][0] += a1 * gV * gV + lam_hat1 * (-2.f * fs * p.Peng / (Vm * Vm * Vm)) * liveV;
-  if constexpr (owns_hw<K, G, I>(0, NZ)) Hw[0][NZ] += a1 * gV;
-  if constexpr (owns_hw<K, G, I>(NZ, 0)) Hw[NZ][0] += a1 * gV;
-  if constexpr (owns_hw<K, G, I>(NZ, NZ)) Hw[NZ][NZ] += a1;
+  Hw[0][0] += a1 * gV * gV + lam_hat1 * (-2.f * fs * p.Peng / (Vm * Vm * Vm)) * liveV;
+  Hw[0][NZ] += a1 * gV;
+  Hw[NZ][0] += a1 * gV;
+  Hw[NZ][NZ] += a1;
   if constexpr (K == K_SWITCH) {  // switching cost: Fx against the stash, Fy against z[5]
     float cw = 2.f * p.w_switch_F / dss;
-    if constexpr (owns_hw<K, G, I>(NZ, NZ)) Hw[NZ][NZ] += cw * (FS * FS);
-    if constexpr (owns_hw<K, G, I>(NZ, 8)) Hw[NZ][8] -= cw * (FS * FS);
-    if constexpr (owns_hw<K, G, I>(8, NZ)) Hw[8][NZ] -= cw * (FS * FS);
-    if constexpr (owns_hw<K, G, I>(8, 8)) Hw[8][8] += cw * (FS * FS);
-    if constexpr (owns_hw<K, G, I>(NZ + 1, NZ + 1)) Hw[NZ + 1][NZ + 1] += cw * (FS * FS);
-    if constexpr (owns_hw<K, G, I>(NZ + 1, 5)) Hw[NZ + 1][5] -= cw * FS;
-    if constexpr (owns_hw<K, G, I>(5, NZ + 1)) Hw[5][NZ + 1] -= cw * FS;
-    if constexpr (owns_hw<K, G, I>(5, 5)) Hw[5][5] += cw;
+    Hw[NZ][NZ] += cw * (FS * FS);
+    Hw[NZ][8] -= cw * (FS * FS);
+    Hw[8][NZ] -= cw * (FS * FS);
+    Hw[8][8] += cw * (FS * FS);
+    Hw[NZ + 1][NZ + 1] += cw * (FS * FS);
+    Hw[NZ + 1][5] -= cw * FS;
+    Hw[5][NZ + 1] -= cw * FS;
+    Hw[5][5] += cw;
   } else {  // Fx/Fy slew (both previous actions in kN)
     const float w_sl[2] = {p.w_Fx, p.w_Fy};
     for (int j = 0; j < 2; ++j) {
       float coef = (2.f * w_sl[j] / dsp) * (FS * FS);
-      if (owns_hw<K, G, I>(8 + j, 8 + j)) Hw[8 + j][8 + j] += coef;
-      if (owns_hw<K, G, I>(8 + j, NZ + j)) Hw[8 + j][NZ + j] -= coef;
-      if (owns_hw<K, G, I>(NZ + j, 8 + j)) Hw[NZ + j][8 + j] -= coef;
-      if (owns_hw<K, G, I>(NZ + j, NZ + j)) Hw[NZ + j][NZ + j] += coef;
+      Hw[8 + j][8 + j] += coef;
+      Hw[8 + j][NZ + j] -= coef;
+      Hw[NZ + j][8 + j] -= coef;
+      Hw[NZ + j][NZ + j] += coef;
     }
   }
   if (K == K_TERM || n == H - 1) {  // terminal cost on the point-mass fields
-    if constexpr (owns_hw<K, G, I>(0, 0))
-      Hw[0][0] += (2.f * p.w_speed) * (V >= p.max_speed ? 1.f : 0.f);
-    if constexpr (owns_hw<K, G, I>(2, 2)) Hw[2][2] += 2.f * p.w_ey;
-    if constexpr (owns_hw<K, G, I>(3, 3)) Hw[3][3] += 2.f * p.w_epsi;
+    Hw[0][0] += (2.f * p.w_speed) * (V >= p.max_speed ? 1.f : 0.f);
+    Hw[2][2] += 2.f * p.w_ey;
+    Hw[3][3] += 2.f * p.w_epsi;
   }
-}
-
-// Direction group I of G of the derivatives at stage n of kind K: the
-// entries it owns of g (NW), the unsymmetrized Hessian Hw[r][c] =
-// d2L/dw_r dw_c and the Jacobian Jm[r][c]; it leaves the others as they
-// are.  G = 1 calls the non-inlined al_cost and rk4_step; a group inlines
-// them (al_cost_body, rk4_body), so its jets need not cross a call.
-template <int K, int G, int I>
-VCT_HD void derivs_dirs(int n, int H, const float wf[NW], const float lam[NC], float mu,
-                        float kv, float dsn, float dsp, float dss, const STParams& p,
-                        float g[NW], float Hw[NW][NW], float Jm[NZ][NW]) {
-  {  // gradient of the full AL cost: first-order jets over the group's inputs
-    constexpr int lo = I * NW / G, m = (I + 1) * NW / G - lo;
-    using JG = Jet<m, 1>;
-    JG w[NW];
-    for (int i = 0; i < NW; ++i) w[i] = seed_or_cst<m, 1>(wf[i], i - lo);
-    JG L;
-    if constexpr (G == 1)
-      L = al_cost<K>(n, H, w, lam, mu, dsn, dsp, dss, p);
-    else
-      L = al_cost_body<K>(n, H, w, lam, mu, dsn, dsp, dss, p);
-    for (int i = lo; i < lo + m; ++i) g[i] = L.d[i - lo];
-  }
-  if constexpr (G == 1) {
-    for (int r = 0; r < NZ; ++r)
-      for (int c = 0; c < NW; ++c) Jm[r][c] = 0.f;
-    for (int r = 0; r < NW; ++r)
-      for (int c = 0; c < NW; ++c) Hw[r][c] = 0.f;
-  } else {  // the owned entries only, unrolled to constant indices
-    VCT_UNROLL
-    for (int r = 0; r < NZ; ++r) {
-      VCT_UNROLL
-      for (int c = 0; c < NW; ++c)
-        if (owns_jm<K, G, I>(c)) Jm[r][c] = 0.f;
-    }
-    VCT_UNROLL
-    for (int r = 0; r < NW; ++r) {
-      VCT_UNROLL
-      for (int c = 0; c < NW; ++c)
-        if (owns_hw<K, G, I>(r, c)) Hw[r][c] = 0.f;
-    }
-  }
-  if constexpr (owns_jm<K, G, I>(NZ)) Jm[8][NZ] = 1.f;  // stash_next = u
-  if constexpr (owns_jm<K, G, I>(NZ + 1)) Jm[9][NZ + 1] = 1.f;
-  constexpr int lo = I * jac_seeds<K>() / G, m = (I + 1) * jac_seeds<K>() / G - lo;
-  using JJ = Jet<m, 1>;
-  if constexpr (K == K_ST || K == K_ST_TERM) {
-    // dynamics Jacobian: jets over (Ux, Uy, r, delta, ey, epsi, u_Fx, w)
-    JJ x[8];
-    for (int i = 0; i < 8; ++i) x[i] = cst<JJ>(wf[i]);
-    for (int s = 0; s < 6; ++s) x[jac_col<K>(s)] = seed_or_cst<m, 1>(wf[jac_col<K>(s)], s - lo);
-    JJ Fx = seed_or_cst<m, 1>(wf[NZ], 6 - lo) * FS;
-    JJ w = seed_or_cst<m, 1>(wf[NZ + 1], 7 - lo);
-    JJ nxt[8];
-    if constexpr (G == 1)
-      rk4_step(x, Fx, w, kv, dsn, p, nxt);
-    else
-      rk4_body(x, Fx, w, kv, dsn, p, nxt);
-    nxt[3] = Clip(nxt[3], p.delta_min, p.delta_max);
-    for (int r = 0; r < 8; ++r)
-      for (int s = lo; s < lo + m; ++s) Jm[r][jac_col<K>(s)] = nxt[r].d[s - lo];
-    if constexpr (owns_jm<K, G, I>(4)) Jm[4][4] = 1.f;  // s_next = s + ds
-    if constexpr (owns_jm<K, G, I>(7)) Jm[7][7] = 1.f;  // t_next = t + ds / s_dot
-  } else if constexpr (K == K_SEAM) {
-    // jets through the handoff over (Ux, Uy, r, delta, u_Fx); s, ey and t
-    // pass through and epsi adds to beta
-    JJ x[8];
-    for (int i = 0; i < 8; ++i) x[i] = cst<JJ>(wf[i]);
-    for (int s = 0; s < 4; ++s) x[s] = seed_or_cst<m, 1>(wf[s], s - lo);
-    JJ nxt[6];
-    seam_map(x, seed_or_cst<m, 1>(wf[NZ], 4 - lo) * FS, p, nxt);
-    for (int r = 0; r < 6; ++r)
-      for (int s = lo; s < lo + m; ++s) Jm[r][jac_col<K>(s)] = nxt[r].d[s - lo];
-    if constexpr (owns_jm<K, G, I>(4)) Jm[1][4] = 1.f;
-    if constexpr (owns_jm<K, G, I>(5)) Jm[2][5] = 1.f;
-    if constexpr (owns_jm<K, G, I>(6)) Jm[3][6] = 1.f;
-    if constexpr (owns_jm<K, G, I>(7)) Jm[4][7] = 1.f;
-  } else {
-    // jets through the Euler step over (V, ey, epsi, u_Fx, u_Fy)
-    JJ x[5] = {seed_or_cst<m, 1>(wf[0], 0 - lo), cst<JJ>(wf[1]),
-               seed_or_cst<m, 1>(wf[2], 1 - lo), seed_or_cst<m, 1>(wf[3], 2 - lo),
-               cst<JJ>(wf[4])};
-    JJ nxt[5];
-    pm_step(x, seed_or_cst<m, 1>(wf[NZ], 3 - lo) * FS, seed_or_cst<m, 1>(wf[NZ + 1], 4 - lo) * FS,
-            kv, dsn, p, nxt);
-    for (int r = 0; r < 5; ++r)
-      for (int s = lo; s < lo + m; ++s) Jm[r][jac_col<K>(s)] = nxt[r].d[s - lo];
-    if constexpr (owns_jm<K, G, I>(1)) Jm[1][1] = 1.f;  // s_next = s + ds
-    if constexpr (owns_jm<K, G, I>(4)) Jm[4][4] = 1.f;  // t_next = t + ds / s_dot_eff
-  }
-  if constexpr (st_kind<K>())
-    st_hessian<K, G, I>(n, wf, lam, mu, dsn, dsp, p, Hw);
-  else
-    pm_hessian<K, G, I>(n, H, wf, lam, mu, dsn, dsp, dss, p, Hw);
 }
 
 // g (NW), unsymmetrized Hessian Hw[r][c] = d2L/dw_r dw_c, Jacobian Jm[r][c]
-// at stage n of kind K: every direction in one jet (kernels 2 and 3)
+// at stage n of kind K
 template <int K>
 VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float lam[NC],
                                   float mu, float kv, float dsn, float dsp, float dss,
                                   const STParams& p, float g[NW], float Hw[NW][NW],
                                   float Jm[NZ][NW]) {
-  derivs_dirs<K, 1, 0>(n, H, wf, lam, mu, kv, dsn, dsp, dss, p, g, Hw, Jm);
+  {  // gradient of the full AL cost: first-order jets over all 12 inputs
+    using J12 = Jet<NW, 1>;
+    J12 w[NW];
+    for (int i = 0; i < NW; ++i) w[i] = seed<NW, 1>(wf[i], i);
+    J12 L = al_cost<K>(n, H, w, lam, mu, dsn, dsp, dss, p);
+    for (int i = 0; i < NW; ++i) g[i] = L.d[i];
+  }
+  for (int r = 0; r < NZ; ++r)
+    for (int c = 0; c < NW; ++c) Jm[r][c] = 0.f;
+  for (int r = 0; r < NW; ++r)
+    for (int c = 0; c < NW; ++c) Hw[r][c] = 0.f;
+  Jm[8][NZ] = 1.f;  // stash_next = u
+  Jm[9][NZ + 1] = 1.f;
+  if constexpr (K == K_ST || K == K_ST_TERM) {
+    // dynamics Jacobian: jets over (Ux, Uy, r, delta, ey, epsi, u_Fx, w)
+    using J8 = Jet<8, 1>;
+    const int cols[6] = {0, 1, 2, 3, 5, 6};
+    J8 x[8];
+    for (int i = 0; i < 8; ++i) x[i] = cst<J8>(wf[i]);
+    for (int c = 0; c < 6; ++c) x[cols[c]] = seed<8, 1>(wf[cols[c]], c);
+    J8 Fx = seed<8, 1>(wf[NZ], 6) * FS;
+    J8 w = seed<8, 1>(wf[NZ + 1], 7);
+    J8 nxt[8];
+    rk4_step(x, Fx, w, kv, dsn, p, nxt);
+    nxt[3] = Clip(nxt[3], p.delta_min, p.delta_max);
+    for (int r = 0; r < 8; ++r) {
+      for (int c = 0; c < 6; ++c) Jm[r][cols[c]] = nxt[r].d[c];
+      Jm[r][NZ] = nxt[r].d[6];
+      Jm[r][NZ + 1] = nxt[r].d[7];
+    }
+    Jm[4][4] = 1.f;  // s_next = s + ds
+    Jm[7][7] = 1.f;  // t_next = t + ds / s_dot
+  } else if constexpr (K == K_SEAM) {
+    // jets through the handoff over (Ux, Uy, r, delta, u_Fx); s, ey and t
+    // pass through and epsi adds to beta
+    using J5 = Jet<5, 1>;
+    const int vidx[5] = {0, 1, 2, 3, NZ};
+    J5 x[8];
+    for (int i = 0; i < 8; ++i) x[i] = cst<J5>(wf[i]);
+    for (int i = 0; i < 4; ++i) x[i] = seed<5, 1>(wf[i], i);
+    J5 nxt[6];
+    seam_map(x, seed<5, 1>(wf[NZ], 4) * FS, p, nxt);
+    for (int r = 0; r < 6; ++r)
+      for (int c = 0; c < 5; ++c) Jm[r][vidx[c]] = nxt[r].d[c];
+    Jm[1][4] = 1.f;
+    Jm[2][5] = 1.f;
+    Jm[3][6] = 1.f;
+    Jm[4][7] = 1.f;
+  } else {
+    // jets through the Euler step over (V, ey, epsi, u_Fx, u_Fy)
+    using J5 = Jet<5, 1>;
+    const int cols[5] = {0, 2, 3, NZ, NZ + 1};
+    J5 x[5] = {seed<5, 1>(wf[0], 0), cst<J5>(wf[1]), seed<5, 1>(wf[2], 1), seed<5, 1>(wf[3], 2),
+               cst<J5>(wf[4])};
+    J5 nxt[5];
+    pm_step(x, seed<5, 1>(wf[NZ], 3) * FS, seed<5, 1>(wf[NZ + 1], 4) * FS, kv, dsn, p, nxt);
+    for (int r = 0; r < 5; ++r)
+      for (int c = 0; c < 5; ++c) Jm[r][cols[c]] = nxt[r].d[c];
+    Jm[1][1] = 1.f;  // s_next = s + ds
+    Jm[4][4] = 1.f;  // t_next = t + ds / s_dot_eff
+  }
+  if constexpr (st_kind<K>())
+    st_hessian<K>(n, wf, lam, mu, dsn, dsp, p, Hw);
+  else
+    pm_hessian<K>(n, H, wf, lam, mu, dsn, dsp, dss, p, Hw);
 }
 
 // -- per-lane kernel bodies ----------------------------------------------------------------

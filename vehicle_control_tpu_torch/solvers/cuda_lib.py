@@ -196,12 +196,13 @@ def load_library() -> ctypes.CDLL:
 
 
 # csrc/singletrack.cuh: kernel_launch_info, a kernel's launch shape; the
-# lead number is the team (kernels 2 and 3), the direction groups (kernel
-# 4) or the scenarios a block (kernel 1)
+# lead number is the team (kernels 2 and 3), the threads a (stage,
+# scenario) (kernel 4) or the scenarios a block (kernel 1)
 LAUNCH_INFO = ("lead", "threads", "block", "registers", "stack_bytes", "static_smem_bytes",
                "smem_bytes_per_block", "blocks_per_sm", "warps_per_sm")
 LEADS = {"vct_solve_fm_info": "team", "vct_backward_fm_info": "team",
-         "vct_derivs_fm_info": "groups", "vct_linesearch_fm_info": "scenarios_per_block"}
+         "vct_derivs_fm_info": "threads_per_stage",
+         "vct_linesearch_fm_info": "scenarios_per_block"}
 
 
 def launch_info(fn, *shape) -> dict:
