@@ -204,6 +204,19 @@ def test_backward_team_matches_plain(host_lib, inputs):
         assert _lane_err(a, b).max().item() < BW_TOL, name
 
 
+def test_backward_team_matches_plain_live_block(host_lib, inputs):
+    """Kernel 2 where the Hessian's second-order block is live (``_active``)."""
+    fam, X, U, lam, mu, curv, ds = _active(inputs)
+    rho = inputs[5]
+    got = host_backward(host_lib, fam, X, U, lam, mu, rho, curv, ds)
+    ref = backward_plain(fam, X, U, lam, mu, rho, curv, ds)
+    assert torch.equal(got[4], ref[4])
+    ok = torch.stack([torch.isfinite(t.reshape(B, -1)).all(-1) for t in ref[:4]]).all(0)
+    assert ok.float().mean() > 0.5
+    for name, a, b in zip(("kff", "Kfb", "dV1", "dV2"), got[:4], ref[:4]):
+        assert _lane_err(a[ok], b[ok]).max().item() < BW_TOL, name
+
+
 def test_solve_team_matches_plain(host_lib, inputs):
     fam, _, U, lam, _, _, curv, ds, z0 = inputs
     got = host_solve(host_lib, fam, WELL, z0, U, lam, curv, ds)
