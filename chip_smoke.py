@@ -17,11 +17,13 @@ For each family it holds kernels 1 (line search), 2 (backward pass), 4
 (stage derivatives), 5 (the line search in the array-of-structs layout)
 and 3 (the whole solve) against their plain PyTorch versions on the inputs
 of the solve after one closed-loop step whose solve is the plain whole
-solve (so no kernel computed them), drives the main path (the whole solve
+solve (so no kernel computed them; kernel 3 at the full budget on that
+step's own cold first solve, both f32 versions against the plain version
+in f64), drives the main path (the whole solve
 in one launch, kernel 3), 1 warm and 3 timed chunks, with exactly one
 kernel-3 launch per step and nothing else, profiles one main-path step,
 counts each kernel's work and times each kernel against its plain version
-(kernels 1 and 4 as the launch alone and with their wrappers).  For the
+(kernels 1, 4 and 5 as the launch alone and with their wrappers).  For the
 single-track family it also drives the per-phase route (kernels 1 + 2) and
 the derivatives route (kernel 4, the torch Riccati sweep, kernel 1), 1 warm
 and 1 timed chunk of 2 steps each, with their launch counts.  Kernel 5 sits
@@ -79,9 +81,12 @@ FAMILIES = {  # controller config, tail, horizon cut, budget (bench.py's family 
 # gate against the plain f32 version (kernels 1 and 5: +inf on a rollout in
 # one of them; kernel 3 check (i): a lane beyond SOLVE_TOL), the plain
 # version run in f64 on the same f32 inputs decides: the lane passes only if
-# it sides with the kernel (the same +inf, or a plain f32 cost that is itself
-# off f64's by more than LS_RTOL; an error against f64 at most the largest
-# QUANT_FACTOR x the plain f32 version's plus LS_FLOOR), and at most
+# it sides with the kernel (the kernel's +inf verdict on those inputs, or,
+# where the f32 verdict turns on the inputs' last bits, +inf verdicts that
+# miss f64's on the inputs and ULP_COPIES copies of them one ulp apart at
+# most the largest QUANT_FACTOR x as often as the plain f32 version's; an
+# error against f64 at most the largest QUANT_FACTOR x the plain f32
+# version's plus LS_FLOOR), and at most
 # WITNESS_SHARE of a gate's lanes (or rollouts) may be decided so
 # (``witness``).  The decided lanes are printed with their numbers.
 # (In f64, a host build of the same CUDA sources matches the plain
@@ -96,19 +101,23 @@ BW_FLOOR = 1e-5  # per lane, |a - b| / (1 + max |b| of the lane)
 # so every lane is held to DV_TOL of its largest magnitude.
 DV_TOL = 1e-4
 WITNESS_SHARE = 1e-3
+ULP_COPIES = 64  # copies of a disputed rollout's inputs, one f32 ulp apart
 # Kernel 3, (i) one outer x one inner iteration at rho0 = RHO_WELL: the
 # chosen step is identical on >= STEP_SAME of the lanes, and on those X, U
 # (per lane, of the lane's magnitude) and cost (relative) agree to SOLVE_TOL.
-# (ii) the full budget at the solver's rho0, on the warm-started inputs of
-# the other checks (the cold first solve of the closed-loop step, from the
-# aligned carry and zero multipliers, is compared and printed, not gated):
-# the f32 rounding of either version tips Armijo ties and chaotic lanes,
-# so it is held to the gates of
-# the JAX package's own kernel-vs-solver check (tests/test_solve_kernel_flow.py:
-# _compare): converged fractions within CONV_GAP, converged-flag flips on
-# fewer than FLIP_MAX of the lanes with the kernel's cost no worse on a
-# majority of them, median relative cost difference on lanes converged in
-# both below COST_MEDIAN, iterations within 2 on at least ITER_WITHIN2.
+# (ii) the full budget at the solver's rho0 on the cold first solve of the
+# checks' closed-loop step (the aligned carry, zero multipliers): the f32
+# rounding of either version tips Armijo ties and chaotic lanes, so it is
+# held to the gates of the JAX package's own kernel-vs-solver check
+# (tests/test_solve_kernel_flow.py: _compare): converged fractions within
+# CONV_GAP, converged-flag flips on fewer than FLIP_MAX of the lanes with
+# the kernel's cost no worse on a majority of them, median relative cost
+# difference on lanes converged in both below COST_MEDIAN, iterations
+# within 2 on at least ITER_WITHIN2.  On the single track's cold solve two
+# f32 versions part on about a fifth of the lanes (so do the JAX package's
+# solver in f32 and in f64, PERF.md), so both f32 versions are held against
+# the plain version in f64 and each gate is taken beyond the plain f32
+# version's own number there (``solve_gates``).
 # (iii) early exit and the alpha=1 fast path change no output bit.
 SOLVE_TOL = 1e-4
 STEP_SAME = 0.999
@@ -269,27 +278,45 @@ def as_accurate(what, kern_err, plain_err, floor):
     return ",".join(out)
 
 
-def solve_gates(got, ref):
-    """Check (ii)'s numbers for kernel 3's outputs ``got`` against the plain
-    solve's ``ref`` (both with the trace), and whether they pass the JAX
-    package's gates."""
-    conv_k, conv_p = got[5].cpu().numpy(), ref[5].cpu().numpy()
-    cost_k, cost_p = got[3].double().cpu().numpy(), ref[3].double().cpu().numpy()
-    flip = conv_k != conv_p
-    no_worse = (cost_k[flip] <= cost_p[flip] + 1e-3 * (1.0 + np.abs(cost_p[flip]))).mean() \
-        if flip.any() else 1.0
-    both = conv_k & conv_p
-    dcost = np.abs(cost_k[both] - cost_p[both]) / (1.0 + np.abs(cost_p[both]))
+def solve_numbers(got, ref):
+    """The JAX gates' numbers for solve outputs ``got`` against ``ref``
+    (both with the trace)."""
+    conv_g, conv_r = got[5].cpu().numpy(), ref[5].cpu().numpy()
+    cost_g, cost_r = got[3].double().cpu().numpy(), ref[3].double().cpu().numpy()
+    flip = conv_g != conv_r
+    both = conv_g & conv_r
+    dcost = np.abs(cost_g[both] - cost_r[both]) / (1.0 + np.abs(cost_r[both]))
     d_it = got[6].cpu().numpy().astype(int) - ref[6].cpu().numpy()
-    within2 = (np.abs(d_it) <= 2).mean()
+    return dict(
+        conv_gap=abs(conv_g.mean() - conv_r.mean()), flips=flip.mean(),
+        no_worse=((cost_g[flip] <= cost_r[flip] + 1e-3 * (1.0 + np.abs(cost_r[flip]))).mean()
+                  if flip.any() else 1.0),
+        both=both.mean(), cost_median=np.median(dcost) if both.any() else np.inf,
+        within2=(np.abs(d_it) <= 2).mean(), iters_equal=(d_it == 0).mean())
+
+
+def solve_gates(got, ref, ref64):
+    """Check (ii): kernel 3's outputs ``got`` and the plain f32 version's
+    ``ref`` against the plain version in f64 ``ref64`` (all with the
+    trace).  The kernel passes the JAX gates against f64, each taken beyond
+    the plain f32 version's own number: converged-fraction gap at most the
+    plain's + CONV_GAP, flips below the plain's + FLIP_MAX, cost median
+    below QUANT_FACTOR x the plain's + COST_MEDIAN (as ``as_accurate``), no
+    worse on flips and iterations within 2 on at least the lesser of the
+    plain's share and the JAX threshold.  Returns the rows (each number
+    kernel/plain against f64, and the kernel against the plain f32 version)
+    and whether it passed."""
+    k, p, kp = solve_numbers(got, ref64), solve_numbers(ref, ref64), solve_numbers(got, ref)
+    passed = (k["conv_gap"] <= p["conv_gap"] + CONV_GAP and k["flips"] < p["flips"] + FLIP_MAX
+              and k["no_worse"] >= min(p["no_worse"], 0.5) and k["both"] > 0.5
+              and k["cost_median"] < QUANT_FACTOR[0.5] * p["cost_median"] + COST_MEDIAN
+              and k["within2"] >= min(p["within2"], ITER_WITHIN2))
     runs = got[7]["inner_runs"]
-    rows = dict(conv=f"{conv_k.mean():.4f}/{conv_p.mean():.4f}", flips=f"{flip.mean():.4f}",
-                flips_no_worse=f"{no_worse:.3f}", cost_median=f"{np.median(dcost):.2e}",
-                iters_within2=f"{within2:.4f}", iters_equal=f"{(d_it == 0).mean():.4f}",
+    rows = dict(conv=f"{got[5].float().mean().item():.4f}/{ref[5].float().mean().item():.4f}"
+                     f"/{ref64[5].float().mean().item():.4f}",
+                **{f"{key}_vs_f64": f"{k[key]:.4g}/{p[key]:.4g}" for key in k},
+                **{f"{key}_vs_plain": f"{kp[key]:.4g}" for key in kp},
                 runs_mean=f"{runs.float().mean().item():.2f}", runs_max=int(runs.max()))
-    passed = (abs(conv_k.mean() - conv_p.mean()) <= CONV_GAP and flip.mean() < FLIP_MAX
-              and no_worse >= 0.5 and both.mean() > 0.5 and np.median(dcost) < COST_MEDIAN
-              and within2 >= ITER_WITHIN2)
     return rows, passed
 
 
@@ -314,20 +341,63 @@ def witness(what, disputed, kernel_side, numbers, total):
     return f"{len(idx)}" + "".join(f"|{r}" for r in rows)
 
 
-def inf_witness(what, costs, costs_ref, costs64):
+def inf_witness(what, costs, costs_ref, costs64, copies=None):
     """Kernels 1 and 5's gate "+inf rollouts identical" (A, B): where the
     kernel and the plain f32 version disagree on +inf, the plain version in
     f64 decides.  It sides with the kernel where it gives the kernel's
-    verdict, and where the plain f32 version is itself no reference for the
-    rollout: both finite, its cost off f64's by more than LS_RTOL (the
-    rollout is chaotic in f32, as at a branch of the tire model where f32
-    and f64 part)."""
+    verdict on the same f32 inputs.  Where it does not, ``copies`` (the
+    kernel's, the plain f32 version's and the f64 costs, each (copies, A,
+    B), NaN where not computed; ``copy_costs``) on copies of the inputs one
+    f32 ulp apart measure each f32 version's +inf verdicts against f64's
+    (``kernel_wrong``, ``plain_wrong``: on the inputs and their copies;
+    ``f64_inf``: the copies f64 puts beyond the guard): it
+    sides with the kernel where the kernel misses f64's verdict at most the
+    largest QUANT_FACTOR x as often as the plain f32 version does (as
+    ``as_accurate`` holds the costs), so on a rollout whose +inf verdict in
+    f32 turns on the inputs' last bits the kernel must be as accurate as
+    the plain version."""
     inf_k, inf_p, inf_64 = (torch.isposinf(c) for c in (costs, costs_ref, costs64))
-    fin = ~inf_p & ~inf_64
-    plain_off = torch.zeros_like(fin)
-    plain_off[fin] = ~(cost_errors(costs_ref[fin], costs64[fin]) <= LS_RTOL)
-    return witness(what, inf_k != inf_p, (inf_k == inf_64) | plain_off,
-                   dict(kernel=costs, plain=costs_ref, f64=costs64), costs.numel())
+    wrong_k, wrong_p = (inf_k != inf_64).long(), (inf_p != inf_64).long()
+    inf_copies = torch.zeros_like(wrong_k)
+    side = inf_k == inf_64
+    if copies is not None:
+        kc, pc, dc = copies
+        seen = ~torch.isnan(dc)
+        inf_d = torch.isposinf(dc)
+        wrong_k = wrong_k + ((torch.isposinf(kc) != inf_d) & seen).sum(0)
+        wrong_p = wrong_p + ((torch.isposinf(pc) != inf_d) & seen).sum(0)
+        inf_copies = inf_d.sum(0)
+        side = side | (seen.any(0) & (wrong_k <= max(QUANT_FACTOR.values()) * wrong_p))
+    return witness(what, inf_k != inf_p, side,
+                   dict(kernel=costs, plain=costs_ref, f64=costs64, kernel_wrong=wrong_k,
+                        plain_wrong=wrong_p, f64_inf=inf_copies), costs.numel())
+
+
+def ulp_copies(args, lanes, copies=ULP_COPIES, exact=(), seed=0):
+    """``copies`` copies of the lanes ``lanes`` (batch axis 0) of the f32
+    inputs ``args``, copy-major, each entry moved one f32 ulp up or down at
+    random.  The inputs at the indices ``exact`` (configuration values) are
+    copied unchanged."""
+    g = torch.Generator(device=args[0].device).manual_seed(seed)
+    out = []
+    for i, t in enumerate(args):
+        x = t[lanes].repeat(copies, *[1] * (t.dim() - 1))
+        if i not in exact:
+            up = torch.rand(x.shape, generator=g, device=x.device) < 0.5
+            x = torch.nextafter(x, torch.where(up, torch.inf, -torch.inf).to(x.dtype))
+        out.append(x.contiguous())
+    return out
+
+
+def copy_costs(costs_of, copies, lanes, shape):
+    """(copies, A, B) costs of the copies (``ulp_copies`` of the lanes
+    ``lanes``) by ``costs_of`` (inputs -> (A, copies x lanes) costs), NaN
+    on every other lane."""
+    n = copies[0].shape[0] // len(lanes)
+    out = torch.full((n, *shape), torch.nan, dtype=torch.float64, device=copies[0].device)
+    got = costs_of(*copies).double()
+    out[:, :, lanes] = got.reshape(shape[0], n, len(lanes)).movedim(1, 0)
+    return out
 
 
 def solve_witness(what, err, kern64, plain64):
@@ -556,7 +626,16 @@ def run_family(label, env):
         for name, kern in (("kernel 1", ls_kernel), ("kernel 5", aos_kernel)):
             costs = kern(*ls_args)
             torch.cuda.synchronize()
-            decided = inf_witness(f"{name} ({cond}) +inf rollouts", costs, costs_ref, costs64)
+            # the disputed rollouts' lanes on copies of their inputs one ulp apart
+            lanes = (torch.isposinf(costs) != torch.isposinf(costs_ref)).any(0).nonzero()[:, 0]
+            copies = None
+            if len(lanes):
+                cop = ulp_copies(ls_args, lanes, exact=(5,))  # mu: a config value
+                copies = [copy_costs(fn, cop, lanes, tuple(costs.shape)) for fn in (
+                    kern, lambda *a: linesearch_costs_plain(fam, alphas, *a),
+                    lambda *a: linesearch_costs_plain(fam, alphas, *(t.double() for t in a)))]
+            decided = inf_witness(f"{name} ({cond}) +inf rollouts", costs, costs_ref, costs64,
+                                  copies)
             fin = torch.isfinite(costs_ref) & torch.isfinite(costs)
             kp = cost_errors(costs[fin], costs_ref[fin])
             row = (f"inf:{int(torch.isposinf(costs_ref).sum())},witness:{decided},"
@@ -634,7 +713,8 @@ def run_family(label, env):
     phase(f"{label}:kernel4_vs_plain", **shape, tol=DV_TOL, max_abs_err=f"{dv_abs:.3e}",
           **dv_rows)
 
-    # kernel 3 against its plain version on the next solve's inputs
+    # kernel 3 against its plain version: (i) and (iii) on the next solve's
+    # inputs, (ii) on the first solve's
     sv_args = (z0, U_init, lam, curv, ds)
     # (i) well conditioned: one outer x one inner iteration at rho0 = RHO_WELL,
     # with the plain version in f64 as the witness of lanes beyond SOLVE_TOL
@@ -677,29 +757,20 @@ def run_family(label, env):
         raise RuntimeError("kernel 3 (well): finite costs differ")
     phase(f"{label}:kernel3_vs_plain_well", **shape, rho0=RHO_WELL, tol=SOLVE_TOL,
           max_abs_err=f"{sv_abs:.3e}", **rows)
-    # (ii) the main path's budget at the solver's rho0, with the JAX gates,
-    # on the warm-started next solve; this plain run is also its timed run.
-    # The cold first solve of the checks' closed-loop step (from the aligned
-    # carry, zero multipliers) is compared too and printed, not gated: there
-    # the two f32 versions part on a fifth of the lanes (PERF.md, PR 5)
-    first_args, first_ref, _ = w["first"]
+    # (ii) the main path's budget at the solver's rho0 on the cold first solve
+    # of the checks' closed-loop step: kernel 3 and the plain f32 version
+    # (the step's own solve, also the plain version's timed run) against the
+    # plain version in f64 on the same inputs
+    first_args, first_ref, sv_plain_ms = w["first"]
     first_got = solve_kernel(*first_args, trace=True)
-    phase(f"{label}:kernel3_vs_plain_first_solve", **shape, rho0=cfg.rho0, gated=False,
-          **solve_gates(first_got, first_ref)[0])
+    first_64 = solve_plain(fam, cfg, *(t.double() for t in first_args), trace=True)
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    ref = solve_plain(fam, cfg, *sv_args, trace=True)
-    end.record()
-    got = solve_kernel(*sv_args, trace=True)
-    torch.cuda.synchronize()
-    sv_plain_ms = start.elapsed_time(end)
-    rows, passed = solve_gates(got, ref)
-    phase(f"{label}:kernel3_vs_plain_rho0", **shape, rho0=cfg.rho0, **rows)
+    rows, passed = solve_gates(first_got, first_ref, first_64)
+    phase(f"{label}:kernel3_vs_plain_rho0", **shape, rho0=cfg.rho0, inputs="cold_first_solve",
+          **rows)
     if not passed:
         raise RuntimeError(f"{label} kernel 3 (rho0): the gates failed: {rows}")
-    runs = got[7]["inner_runs"]
-    cost_k, cost_p = got[3].double().cpu().numpy(), ref[3].double().cpu().numpy()
+    runs = first_got[7]["inner_runs"]
     # (iii) early exit and the alpha=1 fast path change no output bit
     base = solve_kernel(*sv_args)
     for early_exit, fast in ((False, False), (True, True), (False, True)):
@@ -759,9 +830,10 @@ def run_family(label, env):
 
     # each kernel against its plain version at the main path's shapes, on
     # the inputs of the checks above (kernels 1, 2 and 5 at the solver's
-    # rho0); kernel 5's plain version is kernel 1's, on the same numbers
-    # (kernels 1 and 4: the launch alone, on inputs already in their layout;
-    # their wrappers, with the layout copies, beside)
+    # rho0; kernel 3 on check (ii)'s, the plain version's run there); kernel
+    # 5's plain version is kernel 1's, on the same numbers (kernels 1, 4 and
+    # 5: the launch alone, on inputs already in their layout; their wrappers,
+    # with the layout copies, beside)
     ls_laid = [cuda_lib.soa(t) for t in ls_args]
     ls_costs = torch.empty(len(alphas), B, dtype=f32, device=dev)
     dv_soas = [cuda_lib.soa(t) for t in dv_args]
@@ -771,17 +843,18 @@ def run_family(label, env):
                torch.empty(H, fam.NZ, NW, B, dtype=f32, device=dev))
     ms = dict(
         ls=cuda_ms(lambda: ls_kernel.launch(ls_laid, ls_costs)),
-        aos=cuda_ms(lambda: aos_kernel(*ls_args)),
+        aos=cuda_ms(lambda: aos_kernel.launch(ls_args, ls_costs)),  # its layout: the inputs
         bw=cuda_ms(lambda: bw_kernel(*bw_args)),
         dv=cuda_ms(lambda: dv_kernel.launch(dv_soas, dv_outs)),
     )
     wrapper_ms = dict(ls=cuda_ms(lambda: ls_kernel(*ls_args)),
+                      aos=cuda_ms(lambda: aos_kernel(*ls_args)),
                       dv=cuda_ms(lambda: dv_kernel(*dv_args)))
     # kernel 3's runs with the card's clocks beside them: its time has shown
     # two modes on the single track
     sv_runs = []
     with sampled_clocks() as clocks:
-        ms["sv"] = cuda_ms(lambda: solve_kernel(*sv_args), runs=sv_runs)
+        ms["sv"] = cuda_ms(lambda: solve_kernel(*first_args), runs=sv_runs)
     phase(f"{label}:kernel3_modes", runs=len(sv_runs), clock_samples=len(clocks),
           **clock_modes(sv_runs, clocks))
     plain_ms = dict(
@@ -819,7 +892,7 @@ def run_family(label, env):
         "ls": bound(nbytes(*ls_args) + A * B * f4, A * B * ops_cand),
         "bw": bound(nbytes(*bw_args) + B * f4 * (H * (NU + NU * NZ) + 3), B * ops_bw),
         "dv": bound(nbytes(*dv_args) + B * H * f4 * NW * (1 + NW + NZ), B * ops_dv),
-        "sv": bound(nbytes(*sv_args) + B * f4 * (H * (NZ + NU + NC) + cuda_lib.SOLVE_STATS),
+        "sv": bound(nbytes(*first_args) + B * f4 * (H * (NZ + NU + NC) + cuda_lib.SOLVE_STATS),
                     ops_sv),
     }
     bounds["aos"] = bounds["ls"]

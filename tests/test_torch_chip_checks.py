@@ -3,10 +3,13 @@ tensors on the CPU (no card, no JAX).
 
 Where the kernel misses a gate against the plain f32 version on a lane, the
 plain version in f64 decides: the lane passes only if the witness sides with
-the kernel (or, for +inf, finds the plain f32 version itself off by more
-than LS_RTOL), and at most ``WITNESS_SHARE`` of a gate's lanes may be
-decided so.  Kernels 1 and 5: +inf on a rollout in one f32 version only;
-kernel 3 check (i): a lane beyond SOLVE_TOL.
+the kernel (for +inf: the kernel's verdict on the same f32 inputs, or
+verdicts as accurate against f64's as the plain f32 version's on copies of
+the inputs one ulp apart), and at most ``WITNESS_SHARE`` of a
+gate's lanes may be decided so.  Kernels 1 and 5: +inf on a rollout in one
+f32 version only; kernel 3 check (i): a lane beyond SOLVE_TOL.  And check
+(ii)'s gates on the whole solve, both f32 versions against f64
+(``solve_gates``).
 """
 
 import math
@@ -52,19 +55,49 @@ def test_inf_witness_sides_with_plain_fails():
 
 def test_inf_witness_chaotic_rollout():
     """The kernel crosses the state guard where the plain f32 version and
-    f64 stay finite: it passes only where the plain f32 version is itself
-    off f64 by more than LS_RTOL (the rollout is chaotic in f32)."""
+    f64 stay finite: it passes only where, over copies of the inputs one
+    ulp apart, the kernel misses f64's verdict at most 4x as often as the
+    plain f32 version does (which also reaches +inf on some copies), not
+    because the plain f32 version's cost is itself off f64's."""
     kern, plain, f64 = _costs()
     kern[0, 1435], plain[0, 1435], f64[0, 1435] = INF, 2.019e6, 1.411e13
-    assert chip_smoke.inf_witness("k1", kern, plain, f64).startswith("1|0/1435:kernel=inf")
-    plain[0, 1435] = 1.411e13 * (1 + 2 * chip_smoke.LS_RTOL)  # still off: passes
-    assert chip_smoke.inf_witness("k1", kern, plain, f64).startswith("1|")
-    plain[0, 1435] = 1.411e13 * (1 + 0.5 * chip_smoke.LS_RTOL)  # a reference: fails
     with pytest.raises(RuntimeError, match="sides with the plain version on 1 of 1"):
         chip_smoke.inf_witness("k1", kern, plain, f64)
-    kern[0, 1435], plain[0, 1435], f64[0, 1435] = 3.0, INF, INF  # plain and f64 +inf: fails
+    n = 64
+    copies = [torch.full((n, *kern.shape), math.nan, dtype=torch.float64) for _ in range(3)]
+    for c in copies:
+        c[:, 0, 1435] = 1.4e13  # every copy finite in all three
     with pytest.raises(RuntimeError, match="sides with the plain version on 1 of 1"):
-        chip_smoke.inf_witness("k1", kern, plain, f64)
+        chip_smoke.inf_witness("k1", kern, plain, f64, copies)
+    copies[0][:5, 0, 1435] = INF  # the kernel +inf on 5 copies, the plain version on 7
+    copies[1][10:17, 0, 1435] = INF
+    out = chip_smoke.inf_witness("k1", kern, plain, f64, copies)
+    assert out.startswith("1|0/1435:kernel=inf")
+    assert "kernel_wrong=6,plain_wrong=7,f64_inf=0" in out
+    copies[1][11:17, 0, 1435] = 1.4e13  # the plain version on 1 copy: 6 > 4 x 1, fails
+    with pytest.raises(RuntimeError, match="sides with the plain version on 1 of 1"):
+        chip_smoke.inf_witness("k1", kern, plain, f64, copies)
+    copies[2][20:30, 0, 1435] = INF  # f64 +inf on 10 copies: the kernel 16 wrong, the plain 11
+    out = chip_smoke.inf_witness("k1", kern, plain, f64, copies)
+    assert "kernel_wrong=16,plain_wrong=11,f64_inf=10" in out
+
+
+def test_ulp_copies():
+    g = torch.Generator().manual_seed(0)
+    args = (torch.randn(8, 3, 2, generator=g) * 100, torch.full((8,), 300.0))
+    lanes = torch.tensor([1, 6])
+    x, mu = chip_smoke.ulp_copies(args, lanes, copies=4, exact=(1,))
+    base = args[0][lanes].repeat(4, 1, 1)  # copy-major
+    up = torch.nextafter(base, torch.full_like(base, INF))
+    down = torch.nextafter(base, torch.full_like(base, -INF))
+    assert x.dtype == torch.float32 and x.shape == (8, 3, 2)
+    assert ((x == up) | (x == down)).all() and (x == up).any() and (x == down).any()
+    assert torch.equal(mu, torch.full((8,), 300.0))
+    costs = chip_smoke.copy_costs(lambda a, m: a.sum((1, 2))[None].repeat(2, 1), (x, mu), lanes,
+                                  (2, 8))
+    assert costs.shape == (4, 2, 8)
+    assert torch.isnan(costs[:, :, [0, 2, 3, 4, 5, 7]]).all()
+    assert torch.equal(costs[:, 1, lanes], x.sum((1, 2)).double().reshape(4, 2))
 
 
 def test_inf_witness_cap():
@@ -112,6 +145,48 @@ def test_solve_witness_cap():
         chip_smoke.solve_witness("k3", err, kern64, plain64)
     err[0] = 1e-6
     assert chip_smoke.solve_witness("k3", err, kern64, plain64).startswith(f"{n - 1}|")
+
+
+def _solve(conv, cost, iters):
+    """Solve outputs with the trace, as check (ii) reads them."""
+    n = len(conv)
+    return (None, None, None, torch.as_tensor(cost, dtype=torch.float32), None,
+            torch.as_tensor(conv), torch.as_tensor(iters, dtype=torch.int32),
+            dict(inner_runs=torch.full((n,), 13, dtype=torch.int32)))
+
+
+def _solves(n=4096):
+    """(kernel, plain f32, f64): f64 converges on 3/4 of the lanes, and each
+    f32 version parts from it on 800 lanes of its own (400 each way), at a
+    cost 1e-3 off f64's."""
+    conv = torch.ones(n, dtype=torch.bool)
+    conv[: n // 4] = False
+    cost = torch.linspace(1.0, 2.0, n).double()
+    it = torch.full((n,), 9)
+    kern_c, plain_c = conv.clone(), conv.clone()
+    kern_c[:400], kern_c[2048:2448] = True, False
+    plain_c[500:900], plain_c[3000:3400] = True, False
+    return (_solve(kern_c, cost * (1 + 1e-3), it), _solve(plain_c, cost * (1 + 1e-3), it),
+            _solve(conv, cost, it))
+
+
+def test_solve_gates_kernel_as_far_as_plain_passes():
+    kern, plain, f64 = _solves()
+    rows, passed = chip_smoke.solve_gates(kern, plain, f64)
+    assert passed, rows
+    assert rows["flips_vs_f64"] == "0.1953/0.1953"
+
+
+def test_solve_gates_kernel_beyond_plain_fails():
+    kern, plain, f64 = _solves()
+    kern[5][1500:1600] = False  # 100 more flips: 2.4% beyond the plain's
+    assert not chip_smoke.solve_gates(kern, plain, f64)[1]
+    kern, plain, f64 = _solves()
+    kern[3][:] = kern[3] * 1.01  # cost median 1e-2 against f64, the plain's 1e-3
+    assert not chip_smoke.solve_gates(kern, plain, f64)[1]
+    kern, plain, f64 = _solves()
+    kern[6][:2000] = 3  # iterations 6 away on half the lanes
+    assert not chip_smoke.solve_gates(kern, plain, f64)[1]
 
 
 def test_scripts_import_no_jax():

@@ -6,7 +6,7 @@ solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives) and
 ``csrc/rollout_fm.cu`` (kernel 1, the line search from staged stage
 records) with g++ into ``build/host/``; each scenario's team of TEAM
 members is emulated in one thread, phase by phase, and kernel 1's blocks
-phase by phase.  Two builds, compiled side by side: the kernels' team of 4,
+(its schedule, ``linesearch_block``) phase by phase.  Two builds, compiled side by side: the kernels' team of 4,
 and teams of 8.  The test decides whether g++ exists when it runs, and skips
 without it.
 
@@ -25,10 +25,11 @@ beyond the state guard and from a NaN.  Tolerances (those of
   no output bit;
 - kernel 4's lane at inputs where the Hessian's second-order block is
   live: g, Hw and J within DV_TOL of each lane's largest magnitude;
-- kernel 1: the staged blocks (rollout and cost warps, one chunk apart)
-  give the one-lane rollouts' costs (linesearch_lane, within LS_RTOL of the
-  plain version) bit for bit, with step sizes that fit the warps of a block
-  and with more.
+- kernel 1: the staged blocks (the kernel's own schedule,
+  linesearch_block: rollout and cost warps, one chunk apart; threads in
+  either order) give the one-lane rollouts' costs (linesearch_lane, within
+  LS_RTOL of the plain version) bit for bit, with step sizes that fit the
+  warps of a block and with more.
 """
 
 import ctypes
@@ -286,8 +287,9 @@ def test_derivs_lane_matches_plain(kernel_lib, inputs):
 
 @pytest.mark.parametrize("n_alpha", [6, 12])
 def test_linesearch_staged_matches_lane(kernel_lib, inputs, n_alpha):
-    """Kernel 1's staged blocks against the one-lane rollouts: 6 step sizes
-    (a rollout and a cost warp each, chunks of 4 stages) and 12 (some warps
+    """Kernel 1's staged blocks (the kernel's schedule, its threads first to
+    last and last to first) against the one-lane rollouts: 6 step sizes (a
+    rollout and a cost warp each, chunks of 4 stages) and 12 (some warps
     take two, chunks of 2: the record buffers and the ring are reused)."""
     fam, X, U, lam, mu, _, curv, ds, z0 = inputs
     H = fam.H
@@ -299,14 +301,14 @@ def test_linesearch_staged_matches_lane(kernel_lib, inputs, n_alpha):
     params = cuda_lib.family_params(fam)
     al = np.asarray(alphas, np.float32)
     costs = {}
-    for staged in (0, 1):
+    for mode in (0, 1, 2):  # one lane; the blocks, threads first to last; last to first
         out = torch.full((n_alpha, B), float("nan"))
         rc = kernel_lib.vct_host_linesearch(params.ctypes.data, al.ctypes.data, n_alpha,
                                             *[t.data_ptr() for t in soas], out.data_ptr(), B, H,
-                                            staged)
+                                            mode)
         assert rc == 0
-        costs[staged] = out
-    assert _same_bits(costs[1], costs[0])
+        costs[mode] = out
+    assert _same_bits(costs[1], costs[0]) and _same_bits(costs[2], costs[0])
     ref = linesearch_costs_plain(fam, alphas, X, U, kff, Kfb, lam, mu, curv, ds, z0)
     assert torch.equal(torch.isposinf(costs[1]), torch.isposinf(ref))
     assert torch.isposinf(costs[1][:, :2]).all()

@@ -1,15 +1,15 @@
 // Host driver of kernels 1-4: their lane bodies built with a host C++
-// compiler, so their phases, teams and direction groups run on the CPU.
+// compiler, so their phases and teams run on the CPU.
 // - Kernels 2 and 3 (csrc/team.cuh, csrc/solve_fm.cu): each scenario's team
 //   is emulated in one thread: uniform code runs once, and each phase runs
 //   its members one after another, first to last or
 //   (vct_host_set_member_order(1)) last to first, on a shared area of
 //   TEAM_FLOATS floats.
 // - Kernel 4 (csrc/derivs_fm.cu): its lane over every (stage, scenario).
-// - Kernel 1 (csrc/rollout_fm.cu): each block's phases in the kernel's
-//   order (the next chunk's records staged, this chunk's rollouts into the
-//   ring, the previous chunk's costs from it), or one lane at a time
-//   (linesearch_lane, every stage's candidate_stage in order).
+// - Kernel 1 (csrc/rollout_fm.cu): each block through the kernel's own
+//   schedule (linesearch_block), every thread of a phase in turn, in
+//   either order; or one lane at a time (linesearch_lane, every stage's
+//   candidate_stage in order).
 // Same arguments and layouts as the kernels' launchers, without the stream.
 //
 //     g++ -std=c++17 -O1 -shared -fPIC -I csrc -o libvct_host.so csrc/host_driver.cpp
@@ -83,56 +83,48 @@ static void linesearch_lane(int b, int B, int H, float alpha, const LsInputs& in
   cost_out[b] = vct::finite(acc) ? acc : INFINITY;
 }
 
-// kernel 1's costs (A, B): staged, each block's phases in the kernel's
-// order (chunk c + 1's records staged, chunk c's rollouts, chunk c - 1's
-// costs); else linesearch_lane for each (step size, scenario)
+// every thread of a block, for linesearch_block: each phase runs them first
+// to last, or last to first; the barriers and copies are plain
+struct HostBlock {
+  std::vector<LsThread> t;
+  bool last_first;
+  template <class F>
+  void each(F&& f) {
+    const int n = (int)t.size();
+    for (int k = 0; k < n; ++k) {
+      const int i = last_first ? n - 1 - k : k;
+      f(i >> 5, i & 31, t[i]);
+    }
+  }
+  void commit() {}
+  void wait_prior() {}
+  void sync() {}
+};
+
+// kernel 1's costs (A, B): mode 0, linesearch_lane for each (step size,
+// scenario); 1 and 2, each block through linesearch_block, its threads
+// first to last (1) or last to first (2)
 extern "C" int vct_host_linesearch(const float* params, const float* alphas, int A,
                                    const float* xref, const float* uref, const float* kff,
                                    const float* kfb, const float* lam, const float* mu,
                                    const float* curv, const float* ds, const float* z0,
-                                   float* costs, int B, int H, int staged) {
+                                   float* costs, int B, int H, int mode) {
   if (A < 1 || A > MAX_ALPHA || B < 1 || H < 1) return 1;
   STParams p;
   memcpy(&p, params, sizeof(STParams));
   const LsInputs in{xref, uref, kff, kfb, lam, mu, curv, ds, z0};
-  if (!staged) {
+  if (mode == 0) {
     for (int a = 0; a < A; ++a)
       for (int b = 0; b < B; ++b) linesearch_lane(b, B, H, alphas[a], in, costs + (size_t)a * B, p);
     return 0;
   }
-  const int W = ls_warps(A), C = ls_chunk(A), chunks = (H + C - 1) / C;
+  Alphas al;
+  for (int i = 0; i < MAX_ALPHA; ++i) al.v[i] = i < A ? alphas[i] : 0.f;
+  const int C = ls_chunk(A);
   std::vector<float> smem(ls_smem(A, C) / sizeof(float));
-  auto stage = [&](int c, int b0) {  // every warp's share of chunk c's records
-    const int lo = c * C, hi = lo + C < H ? lo + C : H;
-    for (int w = 0; w < 2 * W; ++w)
-      for (int l = 0; l < LS_SCEN; ++l)
-        stage_records(in, p, lo, hi, b0, B, ls_records(smem.data(), C, c), w, 2 * W, l);
-  };
   for (int b0 = 0; b0 < B; b0 += LS_SCEN) {
-    const int lanes = B - b0 < LS_SCEN ? B - b0 : LS_SCEN;
-    std::vector<float> z((size_t)A * LS_SCEN * NZ), acc((size_t)A * LS_SCEN, 0.f);
-    for (int a = 0; a < A; ++a)
-      for (int l = 0; l < lanes; ++l)
-        for (int i = 0; i < NZ; ++i) z[((size_t)a * LS_SCEN + l) * NZ + i] = z0[i * B + b0 + l];
-    stage(0, b0);
-    for (int c = 0; c <= chunks; ++c) {
-      if (c + 1 < chunks) stage(c + 1, b0);
-      for (int roller = 1; roller >= 0; --roller) {  // the rollouts, then the costs
-        const int cc = roller ? c : c - 1;
-        if (cc < 0 || cc >= chunks) continue;
-        const int lo = cc * C, hi = lo + C < H ? lo + C : H;
-        for (int a = 0; a < A; ++a)
-          for (int l = 0; l < lanes; ++l)
-            candidate_chunk(roller, lo, hi, H, alphas[a], mu[b0 + l],
-                            ls_records(smem.data(), C, cc), ls_ring(smem.data(), C, A, cc, a), l,
-                            p, &z[((size_t)a * LS_SCEN + l) * NZ], acc[(size_t)a * LS_SCEN + l]);
-      }
-    }
-    for (int a = 0; a < A; ++a)
-      for (int l = 0; l < lanes; ++l) {
-        const float v = acc[(size_t)a * LS_SCEN + l];
-        costs[(size_t)a * B + b0 + l] = vct::finite(v) ? v : INFINITY;
-      }
+    HostBlock blk{std::vector<LsThread>(2 * ls_warps(A) * 32), mode == 2};
+    linesearch_block(blk, p, al, A, C, in, smem.data(), costs, b0, B, H);
   }
   return 0;
 }

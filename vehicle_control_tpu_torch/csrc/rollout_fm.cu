@@ -42,9 +42,10 @@
 // warps, one a streaming multiprocessor.  The ragged last block masks its
 // lanes past B (they still meet the barriers).  (Measured against one
 // warp a step size that also costs its rollout: PERF.md, kernel_ab.py.)
-// The phases are plain C++ (VCT_HD), so a host compiler builds them for
-// rehearsal (csrc/host_driver.cpp); the kernel and its launcher are CUDA
-// only.
+// The block's schedule (linesearch_block) is plain C++ (VCT_HD) over a
+// thread's view of the block, so a host compiler builds the same source for
+// rehearsal (csrc/host_driver.cpp runs every thread of a block phase by
+// phase); the kernel and its launcher are CUDA only.
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 #endif
@@ -179,57 +180,104 @@ VCT_HD float* ls_ring(float* smem, int C, int A, int chunk, int a) {
   return ring + (size_t)((chunk & 1) * A + a) * C * LS_SCEN * RING;
 }
 
-#if defined(__CUDACC__)
-
 struct Alphas {
   float v[MAX_ALPHA];
+};
+
+// a thread's own state: its step sizes' states and cost sums, and its
+// scenario's mu
+struct LsThread {
+  float z[LS_TURNS][NZ], acc[LS_TURNS], mu;
+};
+
+// The block's schedule, the one source of the kernel and its host
+// rehearsal.  blk.each(f) runs f(warp, lane, the thread's LsThread) on the
+// calling thread on the card, on every thread of the block in turn on the
+// host; blk.commit() and blk.wait_prior() are the cp.async groups (commit,
+// wait for all but the newest), blk.sync() the block barrier: nothing on
+// the host.  Between two barriers no thread reads what another writes.
+template <class Block>
+VCT_HD void linesearch_block(Block& blk, const STParams& p, const Alphas& alphas, int A, int C,
+                             const LsInputs& in, float* smem, float* costs, int b0, int B, int H) {
+  const int W = ls_warps(A), chunks = (H + C - 1) / C;
+  blk.each([&](int warp, int l, LsThread& t) {
+    const int b = b0 + l;
+    const bool live = b < B;
+    t.mu = live ? in.mu[b] : 0.f;
+    for (int j = 0; j < LS_TURNS; ++j) {
+      t.acc[j] = 0.f;
+      for (int i = 0; i < NZ; ++i) t.z[j][i] = live ? in.z0[i * B + b] : 0.f;
+    }
+    stage_records(in, p, 0, C < H ? C : H, b0, B, ls_records(smem, C, 0), warp, 2 * W, l);
+  });
+  blk.commit();
+  for (int c = 0; c <= chunks; ++c) {  // rollouts of chunk c, costs of chunk c - 1
+    if (c + 1 < chunks) {
+      const int lo = (c + 1) * C, hi = lo + C < H ? lo + C : H;
+      blk.each([&](int warp, int l, LsThread&) {
+        stage_records(in, p, lo, hi, b0, B, ls_records(smem, C, c + 1), warp, 2 * W, l);
+      });
+    }
+    blk.commit();
+    blk.wait_prior();  // this thread's copies of chunk c
+    blk.sync();        // and every thread's
+    blk.each([&](int warp, int l, LsThread& t) {
+      const bool roller = warp < W;
+      const int w = roller ? warp : warp - W, cc = roller ? c : c - 1;
+      if (b0 + l >= B || cc < 0 || cc >= chunks) return;
+      const int lo = cc * C, hi = lo + C < H ? lo + C : H;
+      for (int j = 0; j < LS_TURNS; ++j) {
+        const int a = w + j * W;
+        if (a < A)
+          candidate_chunk(roller, lo, hi, H, alphas.v[a], t.mu, ls_records(smem, C, cc),
+                          ls_ring(smem, C, A, cc, a), l, p, t.z[j], t.acc[j]);
+      }
+    });
+    blk.sync();  // chunk c - 1's records and ring are free again
+  }
+  blk.each([&](int warp, int l, LsThread& t) {
+    const int b = b0 + l;
+    if (b >= B || warp < W) return;
+    for (int j = 0; j < LS_TURNS; ++j) {
+      const int a = warp - W + j * W;
+      if (a < A) costs[(size_t)a * B + b] = vct::finite(t.acc[j]) ? t.acc[j] : INFINITY;
+    }
+  });
+}
+
+#if defined(__CUDACC__)
+
+// one thread of the block, for linesearch_block
+struct DeviceBlock {
+  int warp, l;
+  LsThread t;
+  template <class F>
+  VCT_HD void each(F&& f) { f(warp, l, t); }
+  VCT_HD void commit() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.commit_group;\n" ::);
+#endif
+  }
+  VCT_HD void wait_prior() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+#endif
+  }
+  VCT_HD void sync() {
+#if defined(__CUDA_ARCH__)
+    __syncthreads();
+#endif
+  }
 };
 
 __global__ void __launch_bounds__(2 * LS_MAX_WARPS * 32) linesearch_fm_kernel(
     STParams p, Alphas alphas, int A, int C, LsInputs in, float* __restrict__ costs, int B,
     int H) {
   extern __shared__ float smem[];
-  const int W = blockDim.x >> 6;  // rollout warps, then as many cost warps
-  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const bool roller = warp < W;
-  const int w = roller ? warp : warp - W;
-  const int b0 = blockIdx.x * LS_SCEN, b = b0 + l;
-  const bool live = b < B;
-  const float m = live ? in.mu[b] : 0.f;
-  float z[LS_TURNS][NZ], acc[LS_TURNS];
-  for (int j = 0; j < LS_TURNS; ++j) {
-    acc[j] = 0.f;
-    for (int i = 0; i < NZ; ++i) z[j][i] = live ? in.z0[i * B + b] : 0.f;
-  }
-  const int chunks = (H + C - 1) / C;
-  stage_records(in, p, 0, C < H ? C : H, b0, B, ls_records(smem, C, 0), warp, 2 * W, l);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int c = 0; c <= chunks; ++c) {  // rollouts of chunk c, costs of chunk c - 1
-    if (c + 1 < chunks) {
-      const int lo = (c + 1) * C;
-      stage_records(in, p, lo, lo + C < H ? lo + C : H, b0, B, ls_records(smem, C, c + 1), warp,
-                    2 * W, l);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);  // this thread's copies of chunk c
-    __syncthreads();                              // and every thread's
-    const int cc = roller ? c : c - 1;
-    if (live && cc >= 0 && cc < chunks) {
-      const int lo = cc * C, hi = lo + C < H ? lo + C : H;
-      for (int j = 0; j < LS_TURNS; ++j) {
-        const int a = w + j * W;
-        if (a < A)
-          candidate_chunk(roller, lo, hi, H, alphas.v[a], m, ls_records(smem, C, cc),
-                          ls_ring(smem, C, A, cc, a), l, p, z[j], acc[j]);
-      }
-    }
-    __syncthreads();  // chunk c - 1's records and ring are free again
-  }
-  if (live && !roller)
-    for (int j = 0; j < LS_TURNS; ++j) {
-      const int a = w + j * W;
-      if (a < A) costs[(size_t)a * B + b] = vct::finite(acc[j]) ? acc[j] : INFINITY;
-    }
+  DeviceBlock blk;
+  blk.warp = threadIdx.x >> 5;
+  blk.l = threadIdx.x & 31;
+  linesearch_block(blk, p, alphas, A, C, in, smem, costs, (int)blockIdx.x * LS_SCEN, B, H);
 }
 
 extern "C" int vct_param_count() { return (int)(sizeof(STParams) / sizeof(float)); }
