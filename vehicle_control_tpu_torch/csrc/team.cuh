@@ -168,14 +168,14 @@ VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B,
     riccati_elements(t, NZ * NW + NW, [&](int e) {
       if (e < NZ * NW) {
         int r = e / NW, c = e % NW;
-        float s = 0.f;
-        for (int k = 0; k < NZ; ++k) s += Vxx[sym_z(r, k)] * jm(slot, k, c);
+        float s = Vxx[sym_z(r, 0)] * jm(slot, 0, c);
+        for (int k = 1; k < NZ; ++k) s += Vxx[sym_z(r, k)] * jm(slot, k, c);
         VA[e] = s;
       } else {
         int i = e - NZ * NW;
-        float s = slot[SLOT_G + i];
-        for (int k = 0; k < NZ; ++k) s += jm(slot, k, i) * Vx[k];
-        Q[i] = s;
+        float s = jm(slot, 0, i) * Vx[0];
+        for (int k = 1; k < NZ; ++k) s += jm(slot, k, i) * Vx[k];
+        Q[i] = slot[SLOT_G + i] + s;
       }
     });
   });
@@ -192,9 +192,9 @@ VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B,
         int i = e - NZ * NZ - NU * NZ;
         r = NZ + i / NU, c = NZ + i % NU, out = Quu + i;
       }
-      float s = slot[SLOT_H + sym_w(r, c)];
-      for (int k = 0; k < NZ; ++k) s += jm(slot, k, r) * VA[k * NW + c];
-      *out = s;
+      float s = jm(slot, 0, r) * VA[c];
+      for (int k = 1; k < NZ; ++k) s += jm(slot, k, r) * VA[k * NW + c];
+      *out = slot[SLOT_H + sym_w(r, c)] + s;
     });
   });
   // the 2x2 solve, on every member alike
@@ -232,16 +232,16 @@ VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B,
     riccati_elements(t, NZ + VSYM, [&](int e) {
       if (e < NZ) {
         int c = e;
-        Vx[c] = Q[c] + Kg[c] * (Quuk0 + Qu[0]) + Kg[NZ + c] * (Quuk1 + Qu[1]) + Qux[c] * k0 +
-                Qux[NZ + c] * k1;
+        Vx[c] = Q[c] + (Kg[c] * Quuk0 + Kg[NZ + c] * Quuk1) + (Kg[c] * Qu[0] + Kg[NZ + c] * Qu[1]) +
+                (Qux[c] * k0 + Qux[NZ + c] * k1);
         return;
       }
       int r, c;
       unpack_z(e - NZ, r, c);
       auto q = [&](int i, int j) {  // Qxx + K'Quu K + K'Qux + Qux'K at (i, j)
-        return Qxx[i * NZ + j] + (Kg[i] * QK[j] + Kg[NZ + i] * QK[NZ + j] + Kg[i] * Qux[j] +
-                                  Kg[NZ + i] * Qux[NZ + j] + Qux[i] * Kg[j] +
-                                  Qux[NZ + i] * Kg[NZ + j]);
+        return Qxx[i * NZ + j] + (Kg[i] * QK[j] + Kg[NZ + i] * QK[NZ + j]) +
+               (Kg[i] * Qux[j] + Kg[NZ + i] * Qux[NZ + j]) +
+               (Qux[i] * Kg[j] + Qux[NZ + i] * Kg[NZ + j]);
       };
       Vxx[e - NZ] = 0.5f * (q(r, c) + q(c, r));
     });
