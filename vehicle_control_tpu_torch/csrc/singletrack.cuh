@@ -489,6 +489,191 @@ VCT_HD_NOINLINE void dyn(const float wf[NW], float kv, float dsn, const STParams
 
 // -- hand-derived stage derivatives (fm_family.stage_derivs) -------------------------------
 
+// d clip(x, lo, hi) / dx with JAX's 0.5 at a tie (Clip is min of max)
+VCT_HD float clip_grad(float x, float lo, float hi) {
+  return tie_weight(x, lo) * tie_weight(hi, vmax(x, lo));
+}
+
+// The RK4 step's Jacobian by its sparse analytic chain, as the TPU kernel
+// computes it (fm_singletrack.spatial_prime_jac, rk4_step_jac): at each
+// substage spatial_prime's structural partials, written out once, move the
+// 8 tangent columns (Ux, Uy, r, delta, ey, epsi, Fx, w); no jets.  A
+// column's tangent holds the 6 state fields spatial_prime differentiates
+// (0-3, 5, 6; it reads s and t through nothing).  arctan' = 1/(1+q^2), as
+// in JAX, not the polynomial's own derivative: the two differ far inside
+// f32 rounding.
+struct PrimePartials {
+  float f[8];                   // spatial_prime's value
+  float v[6];                   // the temporal fields Ux', Uy', r', delta', ey', epsi'
+  float d[3][5];                // d(Ux', Uy', r') / d(Ux, Uy, r, delta, Fx), clamps folded in
+  float sd[4], e5[3];           // d s_dot / d(Ux, Uy, ey, epsi), d ey' / d(Ux, Uy, epsi)
+  float k, inv, dinv;           // curvature, 1/s_dot_eff, its slope
+};
+
+// the modified Fiala tire's force and its partials along the slip angle's
+// tangent (d/d alpha) and Fy_max (d/dF): the selected branch only
+VCT_HD float fiala_d(float alpha, float F, float Ca, float eps, float& fy_a, float& fy_F) {
+  float ta = sinf(alpha) / cosf(alpha), dta = 1.f + ta * ta;
+  float amod = Arctan(3.f * F * eps / Ca);
+  if (fabsf(alpha) <= amod) {
+    float Ca2 = (float)((double)Ca * Ca), Ca3 = (float)((double)Ca * Ca * Ca);
+    float at = fabsf(ta), F3 = 3.f * F, F2 = sq(F);
+    fy_a = (-Ca + Ca2 * 2.f * at / F3 - Ca3 * (3.f * ta * ta) / (27.f * F2)) * dta;
+    fy_F = -Ca2 * at * ta / (F3 * F) + Ca3 * (ta * ta * ta) * 2.f / (27.f * F2 * F);
+    return -Ca * ta + Ca2 * at * ta / F3 - Ca3 * (ta * ta * ta) / (27.f * F2);
+  }
+  float csat = (float)((double)Ca * (1.0 - 2.0 * eps + (double)eps * eps));
+  float ksat = (float)(3.0 * eps * eps - 2.0 * (double)eps * eps * eps);
+  float sg = Sign(alpha);
+  fy_a = -csat * dta;
+  fy_F = -ksat * sg;
+  return -csat * ta - F * ksat * sg;
+}
+
+// Fy_max of one axle and its partials along Ux and Fx (Max's tie rule)
+VCT_HD float fymax_d(float mu_ax, float Fz, float dFz_Ux, float dFz_Fx, float fx, float dfx,
+                     float& dF_Ux, float& dF_Fx) {
+  float arg = sq(mu_ax * Fz) - sq(0.99f * fx);
+  float F = sqrtf(vmax(arg, 1e-9f));
+  float gF = tie_weight(arg, 1e-9f) * (0.5f / F);
+  dF_Ux = gF * (2.f * (mu_ax * Fz) * (mu_ax * dFz_Ux));
+  dF_Fx = gF * (2.f * (mu_ax * Fz) * (mu_ax * dFz_Fx) - 2.f * (0.99f * fx) * (0.99f * dfx));
+  return F;
+}
+
+// spatial_prime's value at x and its partials
+VCT_HD void prime_partials(const float x[8], float Fx, float wact, float k, const STParams& p,
+                           PrimePartials& P) {
+  const float cg0 = clip_grad(x[0], 1.f, 1e3f), cg3 = clip_grad(x[3], -1.f, 1.f);
+  const float cg5 = clip_grad(x[5], -8.f, 8.f), cg6 = clip_grad(x[6], -1.3f, 1.3f);
+  const float Ux = Clip(x[0], 1.f, 1e3f), Uy = x[1], r = x[2], delta = Clip(x[3], -1.f, 1.f);
+  const float ey = Clip(x[5], -8.f, 8.f), epsi = Clip(x[6], -1.3f, 1.3f);
+  // drive/brake split: functions of Fx
+  const float thf = tanhf(2.f * (Fx / DSS + 0.5f)), thr = tanhf(-2.f * (Fx / DSS + 0.5f));
+  const float Xf = (p.Xdf - p.Xbf) / 2 * thf + (p.Xdf + p.Xbf) / 2;
+  const float Xr = (p.Xbr - p.Xdr) / 2 * thr + (p.Xdr + p.Xbr) / 2;
+  const float fxf = Fx * Xf, fxr = Fx * Xr;
+  const float dfxf = Xf + Fx * ((p.Xdf - p.Xbf) / 2 * (1.f - thf * thf) * (2.f / DSS));
+  const float dfxr = Xr - Fx * ((p.Xbr - p.Xdr) / 2 * (1.f - thr * thr) * (2.f / DSS));
+  // normal loads and Fy_max (Ux >= 1: SafeDiv's guard never binds)
+  const float czf = (p.b / p.l) * p.m, czr = (p.a / p.l) * p.m;
+  const float Fzf = czf * (p.gcc + p.Av2 * (Ux * Ux)) - p.h * Fx / p.l;
+  const float Fzr = czr * (p.gcc + p.Av2 * (Ux * Ux)) + p.h * Fx / p.l;
+  float dFf_Ux, dFf_Fx, dFr_Ux, dFr_Fx;
+  const float Ff = fymax_d(p.mu_f, Fzf, czf * p.Av2 * 2.f * Ux, -p.h / p.l, fxf, dfxf, dFf_Ux,
+                           dFf_Fx);
+  const float Fr = fymax_d(p.mu_r, Fzr, czr * p.Av2 * 2.f * Ux, p.h / p.l, fxr, dfxr, dFr_Ux,
+                           dFr_Fx);
+  // slip angles and tire forces; partials over (Ux, Uy, r, delta, Fx)
+  const float qf = (Uy + p.a * r) / Ux, qr = (Uy - p.b * r) / Ux;
+  const float gf = 1.f / (1.f + qf * qf) / Ux, gr = 1.f / (1.f + qr * qr) / Ux;
+  float fyf_a, fyf_F, fyr_a, fyr_F;
+  const float fyf = fiala_d(Arctan(qf) - delta, Ff, p.Caf, p.eps, fyf_a, fyf_F);
+  const float fyr = fiala_d(Arctan(qr), Fr, p.Car, p.eps, fyr_a, fyr_F);
+  const float dfyf[5] = {fyf_a * (-gf * qf) + fyf_F * dFf_Ux, fyf_a * gf, fyf_a * (gf * p.a),
+                         -fyf_a, fyf_F * dFf_Fx};
+  const float dfyr[5] = {fyr_a * (-gr * qr) + fyr_F * dFr_Ux, fyr_a * gr, fyr_a * (-gr * p.b), 0.f,
+                         fyr_F * dFr_Fx};
+  // the temporal fields and their partials
+  const float cd = cosf(delta), sd = sinf(delta), ce = cosf(epsi), se = sinf(epsi);
+  const float Fd = p.Frr + p.Cd * (Ux * Ux);
+  const float lat = fyf * cd + fxf * sd;  // the front axle's lateral force in the body frame
+  P.v[0] = (fxf * cd - fyf * sd + fxr - Fd) / p.m + r * Uy;
+  P.v[1] = (lat + fyr) / p.m - r * Ux;
+  P.v[2] = (p.a * lat - p.b * fyr) / p.Izz;
+  P.v[3] = wact;
+  const float deninv = 1.f / (1.f - k * ey);
+  const float sdot = (Ux * ce - Uy * se) / (1.f - k * ey);
+  P.v[4] = Ux * se + Uy * ce;
+  P.v[5] = r - k * sdot;
+  for (int j = 0; j < 5; ++j) {
+    float dlat = dfyf[j] * cd + (j == 3 ? fxf * cd - fyf * sd : 0.f) + (j == 4 ? dfxf * sd : 0.f);
+    float d0 = -dfyf[j] * sd + (j == 3 ? -fxf * sd - fyf * cd : 0.f) +
+               (j == 4 ? dfxf * cd + dfxr : 0.f) - (j == 0 ? 2.f * p.Cd * Ux : 0.f);
+    P.d[0][j] = d0 / p.m + (j == 1 ? r : 0.f) + (j == 2 ? Uy : 0.f);
+    P.d[1][j] = (dlat + dfyr[j]) / p.m - (j == 0 ? r : 0.f) - (j == 2 ? Ux : 0.f);
+    P.d[2][j] = (p.a * dlat - p.b * dfyr[j]) / p.Izz;
+  }
+  for (int i = 0; i < 3; ++i) {
+    P.d[i][0] *= cg0;
+    P.d[i][3] *= cg3;
+  }
+  P.sd[0] = ce * deninv * cg0;
+  P.sd[1] = -se * deninv;
+  P.sd[2] = sdot * k * deninv * cg5;
+  P.sd[3] = (-Ux * se - Uy * ce) * deninv * cg6;
+  P.e5[0] = se * cg0;
+  P.e5[1] = ce;
+  P.e5[2] = (Ux * ce - Uy * se) * cg6;
+  P.k = k;
+  // the softplus floor on s_dot, then the division
+  const float y = BETA * (sdot - FLOOR), sp = Softplus0(y);
+  P.inv = 1.f / (FLOOR + sp / BETA);
+  P.dinv = -(P.inv * P.inv) * expf(y - sp);
+  P.f[0] = P.v[0] * P.inv;
+  P.f[1] = P.v[1] * P.inv;
+  P.f[2] = P.v[2] * P.inv;
+  P.f[3] = P.v[3] * P.inv;
+  P.f[4] = 1.f;
+  P.f[5] = P.v[4] * P.inv;
+  P.f[6] = P.v[5] * P.inv;
+  P.f[7] = P.inv;
+}
+
+// the tangent of spatial_prime along one column: t the column's tangent of
+// the state fields 0-3, 5, 6; tFx, tw its direct Fx and w components; out
+// rows 0-7 (row 4, s' = 1, is 0)
+VCT_HD void prime_tangent(const PrimePartials& P, const float t[6], float tFx, float tw,
+                          float out[8]) {
+  const float tsd = P.sd[0] * t[0] + P.sd[1] * t[1] + P.sd[2] * t[4] + P.sd[3] * t[5];
+  const float tinv = P.dinv * tsd;
+  float tv[6];
+  for (int i = 0; i < 3; ++i)
+    tv[i] = P.d[i][0] * t[0] + P.d[i][1] * t[1] + P.d[i][2] * t[2] + P.d[i][3] * t[3] +
+            P.d[i][4] * tFx;
+  tv[3] = tw;
+  tv[4] = P.e5[0] * t[0] + P.e5[1] * t[1] + P.e5[2] * t[5];
+  tv[5] = t[2] - P.k * tsd;
+  const int row[6] = {0, 1, 2, 3, 5, 6};
+  for (int i = 0; i < 6; ++i) out[row[i]] = tv[i] * P.inv + P.v[i] * tinv;
+  out[4] = 0.f;
+  out[7] = tinv;
+}
+
+// Jm's rows 0-7 over the columns (Ux, Uy, r, delta, ey, epsi, u_Fx, w) of
+// the RK4 step with the steering stop, at wf; Fx = u_Fx * FS
+VCT_HD_NOINLINE void rk4_jacobian(const float wf[NW], float kv, float h, const STParams& p,
+                                  float Jm[NZ][NW]) {
+  const int COLS[8] = {0, 1, 2, 3, 5, 6, NZ, NZ + 1};
+  const float Fx = wf[NZ] * FS, wact = wf[NZ + 1];
+  float T[8][6], acc[8][8], xs[8], next3 = 0.f;  // T[c]: column c's state tangent
+  for (int c = 0; c < 8; ++c)
+    for (int i = 0; i < 6; ++i) T[c][i] = c == i ? 1.f : 0.f;
+  for (int i = 0; i < 8; ++i) xs[i] = wf[i];
+  const float wsub[4] = {1.f, 2.f, 2.f, 1.f}, step[4] = {0.5f * h, 0.5f * h, h, 0.f};
+  for (int q = 0; q < 4; ++q) {
+    PrimePartials P;
+    prime_partials(xs, Fx, wact, kv, p, P);
+    next3 = q == 0 ? P.f[3] : next3 + wsub[q] * P.f[3];
+    for (int i = 0; i < 8; ++i) xs[i] = wf[i] + step[q] * P.f[i];
+    for (int c = 0; c < 8; ++c) {
+      float D[8];
+      prime_tangent(P, T[c], c == 6 ? FS : 0.f, c == 7 ? 1.f : 0.f, D);
+      for (int r = 0; r < 8; ++r) acc[r][c] = q == 0 ? D[r] : acc[r][c] + wsub[q] * D[r];
+      const int row[6] = {0, 1, 2, 3, 5, 6};
+      for (int i = 0; i < 6; ++i) T[c][i] = (c == i ? 1.f : 0.f) + step[q] * D[row[i]];
+    }
+  }
+  next3 = wf[3] + h * next3 / 6.f;
+  const float stop = clip_grad(next3, p.delta_min, p.delta_max);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) {
+      float J = (r < 4 || r == 5 || r == 6) && COLS[c] == r ? 1.f : 0.f;
+      J = J + h * acc[r][c] / 6.f;
+      Jm[r][COLS[c]] = r == 3 ? J * stop : J;
+    }
+}
+
 // the Hessian of a single-track stage's AL cost (the seam's included):
 // second-order jets on the nonquadratic block, the rest in closed form
 template <int K>
@@ -602,22 +787,7 @@ VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float 
   Jm[8][NZ] = 1.f;  // stash_next = u
   Jm[9][NZ + 1] = 1.f;
   if constexpr (K == K_ST || K == K_ST_TERM) {
-    // dynamics Jacobian: jets over (Ux, Uy, r, delta, ey, epsi, u_Fx, w)
-    using J8 = Jet<8, 1>;
-    const int cols[6] = {0, 1, 2, 3, 5, 6};
-    J8 x[8];
-    for (int i = 0; i < 8; ++i) x[i] = cst<J8>(wf[i]);
-    for (int c = 0; c < 6; ++c) x[cols[c]] = seed<8, 1>(wf[cols[c]], c);
-    J8 Fx = seed<8, 1>(wf[NZ], 6) * FS;
-    J8 w = seed<8, 1>(wf[NZ + 1], 7);
-    J8 nxt[8];
-    rk4_step(x, Fx, w, kv, dsn, p, nxt);
-    nxt[3] = Clip(nxt[3], p.delta_min, p.delta_max);
-    for (int r = 0; r < 8; ++r) {
-      for (int c = 0; c < 6; ++c) Jm[r][cols[c]] = nxt[r].d[c];
-      Jm[r][NZ] = nxt[r].d[6];
-      Jm[r][NZ + 1] = nxt[r].d[7];
-    }
+    rk4_jacobian(wf, kv, dsn, p, Jm);
     Jm[4][4] = 1.f;  // s_next = s + ds
     Jm[7][7] = 1.f;  // t_next = t + ds / s_dot
   } else if constexpr (K == K_SEAM) {
