@@ -47,18 +47,19 @@ using namespace vct;
 VCT_HD void derivs_lane(int n, int b, int B, int H, const STParams& p, const float* x,
                         const float* u, const float* lam, const float* mu, const float* curv,
                         const float* ds, float* g_out, float* hw_out, float* jm_out) {
-  float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
+  float wf[NW], lamv[NC], g[NW], Hs[NSYM], Jm[NZ][NW];
   for (int i = 0; i < NZ; ++i) wf[i] = x[at2(n, i, NZ, b, B)];
   for (int j = 0; j < NU; ++j) wf[NZ + j] = u[at2(n, j, NU, b, B)];
   for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
   with_kind(stage_kind(n, H, p), [&](auto kc) {
     stage_derivs<decltype(kc)::value>(n, H, wf, lamv, mu[b], curv[n * B + b], ds[n * B + b],
                                       ds[(n > 0 ? n - 1 : 0) * B + b],
-                                      ds[seam_stage(p) * B + b], p, g, Hw, Jm);
+                                      ds[seam_stage(p) * B + b], p, g, Hs, Jm);
   });
   for (int r = 0; r < NW; ++r) g_out[at2(n, r, NW, b, B)] = g[r];
   for (int r = 0; r < NW; ++r)
-    for (int c = 0; c < NW; ++c) hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hw[r][c];
+    for (int c = 0; c < NW; ++c)
+      hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hs[sym_w(r, c)];
   for (int r = 0; r < NZ; ++r)
     for (int c = 0; c < NW; ++c) jm_out[((size_t)(n * NZ + r) * NW + c) * B + b] = Jm[r][c];
 }

@@ -1,7 +1,10 @@
 // Forward-mode Taylor jets: the CUDA twin of vehicle_control_tpu_torch/utils/jet.py.
 //
 // A Jet<N, K> is a float value with its first derivatives with respect to N
-// seeded inputs and, for K == 2, the N x N second derivatives.  The physics
+// seeded inputs and, for K == 2, the second derivatives: the upper triangle
+// of the symmetric N x N block, row by row (N(N+1)/2 entries; hess(a, i, j)
+// reads either triangle), so each entry is computed once and the block
+// comes out exactly symmetric.  The physics
 // in singletrack.cuh is written once as templates over the scalar type, so
 // the same expression gives values (float) or exact derivatives (Jet).
 // Non-smooth ops follow JAX's conventions as the Python twin does: max/min
@@ -30,10 +33,20 @@ namespace vct {
 
 template <int N, int K>
 struct Jet {
+  static constexpr int NH = K == 2 ? N * (N + 1) / 2 : 1;
   float v;
   float d[N];
-  float h[K == 2 ? N * N : 1];
+  float h[NH];
 };
+
+// the packed index of (i, j), i <= j, of an N x N upper triangle
+template <int N>
+VCT_HD constexpr int tri(int i, int j) { return i * (2 * N - i + 1) / 2 + j - i; }
+
+template <int N>
+VCT_HD float hess(const Jet<N, 2>& a, int i, int j) {
+  return i <= j ? a.h[tri<N>(i, j)] : a.h[tri<N>(j, i)];
+}
 
 // -- constants, seeds, values -------------------------------------------------
 
@@ -49,7 +62,7 @@ struct Scalar<Jet<N, K>> {
     r.v = c;
     for (int i = 0; i < N; ++i) r.d[i] = 0.f;
     if constexpr (K == 2)
-      for (int i = 0; i < N * N; ++i) r.h[i] = 0.f;
+      for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = 0.f;
     return r;
   }
 };
@@ -84,7 +97,7 @@ VCT_HD Jet<N, K> operator-(const Jet<N, K>& a) {
   r.v = -a.v;
   for (int i = 0; i < N; ++i) r.d[i] = -a.d[i];
   if constexpr (K == 2)
-    for (int i = 0; i < N * N; ++i) r.h[i] = -a.h[i];
+    for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = -a.h[i];
   return r;
 }
 
@@ -94,7 +107,7 @@ VCT_HD Jet<N, K> operator+(const Jet<N, K>& a, const Jet<N, K>& b) {
   r.v = a.v + b.v;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] + b.d[i];
   if constexpr (K == 2)
-    for (int i = 0; i < N * N; ++i) r.h[i] = a.h[i] + b.h[i];
+    for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = a.h[i] + b.h[i];
   return r;
 }
 
@@ -114,7 +127,7 @@ VCT_HD Jet<N, K> operator-(const Jet<N, K>& a, const Jet<N, K>& b) {
   r.v = a.v - b.v;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] - b.d[i];
   if constexpr (K == 2)
-    for (int i = 0; i < N * N; ++i) r.h[i] = a.h[i] - b.h[i];
+    for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = a.h[i] - b.h[i];
   return r;
 }
 
@@ -138,10 +151,9 @@ VCT_HD Jet<N, K> operator*(const Jet<N, K>& a, const Jet<N, K>& b) {
   r.v = a.v * b.v;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b.v + b.d[i] * a.v;
   if constexpr (K == 2)
-    for (int i = 0; i < N; ++i)
-      for (int j = 0; j < N; ++j)
-        r.h[i * N + j] = a.h[i * N + j] * b.v + b.h[i * N + j] * a.v +
-                         a.d[i] * b.d[j] + b.d[i] * a.d[j];
+    for (int i = 0, e = 0; i < N; ++i)
+      for (int j = i; j < N; ++j, ++e)
+        r.h[e] = a.h[e] * b.v + b.h[e] * a.v + a.d[i] * b.d[j] + b.d[i] * a.d[j];
   return r;
 }
 
@@ -151,7 +163,7 @@ VCT_HD Jet<N, K> operator*(const Jet<N, K>& a, float c) {
   r.v = a.v * c;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
   if constexpr (K == 2)
-    for (int i = 0; i < N * N; ++i) r.h[i] = a.h[i] * c;
+    for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = a.h[i] * c;
   return r;
 }
 
@@ -164,10 +176,9 @@ VCT_HD Jet<N, K> operator/(const Jet<N, K>& a, const Jet<N, K>& b) {
   r.v = a.v / b.v;
   for (int i = 0; i < N; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
   if constexpr (K == 2)
-    for (int i = 0; i < N; ++i)
-      for (int j = 0; j < N; ++j)
-        r.h[i * N + j] = (a.h[i * N + j] - r.v * b.h[i * N + j] - r.d[i] * b.d[j] -
-                          b.d[i] * r.d[j]) / b.v;
+    for (int i = 0, e = 0; i < N; ++i)
+      for (int j = i; j < N; ++j, ++e)
+        r.h[e] = (a.h[e] - r.v * b.h[e] - r.d[i] * b.d[j] - b.d[i] * r.d[j]) / b.v;
   return r;
 }
 
@@ -177,7 +188,7 @@ VCT_HD Jet<N, K> operator/(const Jet<N, K>& a, float c) {
   r.v = a.v / c;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] / c;
   if constexpr (K == 2)
-    for (int i = 0; i < N * N; ++i) r.h[i] = a.h[i] / c;
+    for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = a.h[i] / c;
   return r;
 }
 
@@ -187,9 +198,9 @@ VCT_HD Jet<N, K> operator/(float c, const Jet<N, K>& b) {
   r.v = c / b.v;
   for (int i = 0; i < N; ++i) r.d[i] = -r.v * b.d[i] / b.v;
   if constexpr (K == 2)
-    for (int i = 0; i < N; ++i)
-      for (int j = 0; j < N; ++j)
-        r.h[i * N + j] = (-r.v * b.h[i * N + j] - r.d[i] * b.d[j] - b.d[i] * r.d[j]) / b.v;
+    for (int i = 0, e = 0; i < N; ++i)
+      for (int j = i; j < N; ++j, ++e)
+        r.h[e] = (-r.v * b.h[e] - r.d[i] * b.d[j] - b.d[i] * r.d[j]) / b.v;
   return r;
 }
 
@@ -203,9 +214,8 @@ VCT_HD Jet<N, K> chain(const Jet<N, K>& a, float f0, float f1, float f2) {
   r.v = f0;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * f1;
   if constexpr (K == 2)
-    for (int i = 0; i < N; ++i)
-      for (int j = 0; j < N; ++j)
-        r.h[i * N + j] = a.h[i * N + j] * f1 + f2 * (a.d[i] * a.d[j]);
+    for (int i = 0, e = 0; i < N; ++i)
+      for (int j = i; j < N; ++j, ++e) r.h[e] = a.h[e] * f1 + f2 * (a.d[i] * a.d[j]);
   return r;
 }
 
@@ -257,7 +267,7 @@ VCT_HD Jet<N, K> blend(float v, const Jet<N, K>& a, float wa, const Jet<N, K>& b
   float wb = 1.f - wa;
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * wa + b.d[i] * wb;
   if constexpr (K == 2)
-    for (int i = 0; i < N * N; ++i) r.h[i] = a.h[i] * wa + b.h[i] * wb;
+    for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = a.h[i] * wa + b.h[i] * wb;
   return r;
 }
 

@@ -151,8 +151,12 @@ VCT_HD T SafeDiv(const T& num, const T& den, float eps) {
   return num / (sign * Max(Abs(den), eps));
 }
 
+// tan as sin / cos of the value; on a jet one chain (tan' = 1 + tan^2)
 template <class T>
-VCT_HD T Tan(const T& x) { return Sin(x) / Cos(x); }
+VCT_HD T Tan(const T& x) {
+  const float t = sinf(val(x)) / cosf(val(x));
+  return chain(x, t, 1.f + t * t, 2.f * t * (1.f + t * t));
+}
 
 // polynomial arctan r(z) = z P(z^2), |err| < 3.5e-11 in exact arithmetic;
 // on a jet, P, P' and P''/2 come from one Horner pass on values and are
@@ -674,104 +678,138 @@ VCT_HD_NOINLINE void rk4_jacobian(const float wf[NW], float kv, float h, const S
     }
 }
 
-// the Hessian of a single-track stage's AL cost (the seam's included):
-// second-order jets on the nonquadratic block, the rest in closed form
+// the packed upper triangle of a symmetric matrix of order NW, row by row:
+// the Hessian as stage_derivs gives it and kernels 2 and 3 keep it
+constexpr int NSYM = NW * (NW + 1) / 2;  // 78
+VCT_HD int sym_w(int r, int c) {
+  if (r > c) { int x = r; r = c; c = x; }
+  return r * (2 * NW - r + 1) / 2 + c - r;
+}
+
+// tan and cos of a: the sine and cosine of the value once, each a chain
+template <class T>
+VCT_HD void tan_cos(const T& a, T& t, T& c) {
+  const float sv = sinf(val(a)), cv = cosf(val(a)), tv = sv / cv;
+  t = chain(a, tv, 1.f + tv * tv, 2.f * tv * (1.f + tv * tv));
+  c = chain(a, cv, -sv, -cv);
+}
+
+// The nonquadratic part of a single-track stage's AL cost over (Ux, Uy, r,
+// delta, Fx): the slip penalty and the PHR rows 3 and 6-9 over 2 mu
+// (slip_penalty, constraints), with the slip angles, their tangents and
+// cosines, the normal loads and the drive/brake split computed once for both.
+template <class T>
+VCT_HD T st_block(const T x[4], const T& Fx, const float lam[NC], float mu, const STParams& p) {
+  const T &Ux = x[0], &Uy = x[1], &r = x[2], &delta = x[3];
+  const float fs = 1.f / FS;
+  T fxf = Fx_f(Fx, p), fxr = Fx_r(Fx, p), fzf = Fz_f(Ux, Fx, p), fzr = Fz_r(Ux, Fx, p);
+  T ta_f, ca_f, ta_r, ca_r;
+  tan_cos(alpha_f(Ux, Uy, r, delta, p), ta_f, ca_f);
+  tan_cos(alpha_r(Ux, Uy, r, p), ta_r, ca_r);
+  ta_f = Abs(ta_f);
+  ta_r = Abs(ta_r);
+  T tam_f = Tan(Arctan(3.f * Sqrt(Max(sq(p.mu_f * fzf) - sq(0.99f * fxf), 1e-9f)) * p.eps / p.Caf));
+  T tam_r = Tan(Arctan(3.f * Sqrt(Max(sq(p.mu_r * fzr) - sq(0.99f * fxr), 1e-9f)) * p.eps / p.Car));
+  T cost = p.w_slip * (Where(val(ta_f) >= val(tam_f), sq(ta_f - tam_f), 0.f) +
+                       Where(val(ta_r) >= val(tam_r), sq(ta_r - tam_r), 0.f));
+  T bound_f = p.mu_f * fzf * ca_f, bound_r = p.mu_r * fzr * ca_r;
+  const T c[5] = {(Fx - p.Peng / Max(Ux, 1.f)) * fs, (fxf - bound_f) * fs, (-fxf - bound_f) * fs,
+                  (fxr - bound_r) * fs, (-fxr - bound_r) * fs};
+  const int rows[5] = {3, 6, 7, 8, 9};
+  T pen = cst<T>(0.f);
+  for (int j = 0; j < 5; ++j) pen = pen + phr(c[j], lam[rows[j]], mu);
+  return cost + pen / (2.f * mu);
+}
+
+// the Hessian of a single-track stage's AL cost (the seam's included),
+// packed: the nonquadratic block by one second-order jet pass (st_block),
+// the rest in closed form
 template <int K>
 VCT_HD void st_hessian(int n, const float wf[NW], const float lam[NC], float mu, float dsn,
-                       float dsp, const STParams& p, float Hw[NW][NW]) {
-  {  // nonquadratic block over (Ux, Uy, r, delta, u_Fx): second-order jets
+                       float dsp, const STParams& p, float Hs[NSYM]) {
+  {  // nonquadratic block over (Ux, Uy, r, delta, u_Fx)
     using H5 = Jet<5, 2>;
     const int vidx[5] = {0, 1, 2, 3, NZ};
-    H5 x[8];
-    for (int i = 0; i < 8; ++i) x[i] = cst<H5>(wf[i]);
+    H5 x[4];
     for (int i = 0; i < 4; ++i) x[i] = seed<5, 2>(wf[i], i);
-    H5 Fx = seed<5, 2>(wf[NZ], 4) * FS;
-    H5 c[NC];
-    constraints(x, Fx, cst<H5>(wf[NZ + 1]), p, c);
-    const int rows[5] = {3, 6, 7, 8, 9};
-    H5 pen = cst<H5>(0.f);
-    for (int j = 0; j < 5; ++j) pen = pen + phr(c[rows[j]], lam[rows[j]], mu);
-    H5 block = slip_penalty(x, Fx, p) + pen / (2.f * mu);
+    H5 block = st_block(x, seed<5, 2>(wf[NZ], 4) * FS, lam, mu, p);
     for (int i = 0; i < 5; ++i)
-      for (int j = 0; j < 5; ++j) Hw[vidx[i]][vidx[j]] = block.h[i * 5 + j];
+      for (int j = i; j < 5; ++j) Hs[sym_w(vidx[i], vidx[j])] = hess(block, i, j);
   }
-  // closed-form quadratic / piecewise-quadratic entries
-  float c[NC];
-  stage_constraints<K>(n, wf, p, c);
-  float act[NC];
-  for (int j = 0; j < NC; ++j) act[j] = active(lam[j] + mu * c[j]);
+  // closed-form quadratic / piecewise-quadratic entries; the linear
+  // constraint rows 0-2 (masked at stage 0), 4 and 5
+  const float Ux = wf[0], delta = wf[3], ey = wf[5], wact = wf[NZ + 1];
+  const float act0 = active(lam[0] + mu * (p.Ux_min - Ux));
+  const float act1 = active(lam[1] + mu * (delta - p.delta_max));
+  const float act2 = active(lam[2] + mu * (p.delta_min - delta));
+  const float act4 = active(lam[4] + mu * (wact - p.w_max));
+  const float act5 = active(lam[5] + mu * (p.w_min - wact));
   float keep = n == 0 ? 0.f : 1.f;
   float termf = K == K_ST_TERM ? 1.f : 0.f;
-  float Ux = wf[0], ey = wf[5];
-  Hw[0][0] += mu * act[0] * keep + termf * (2.f * p.w_speed) * (Ux >= p.max_speed ? 1.f : 0.f);
-  Hw[3][3] += mu * (act[1] + act[2]) * keep;
-  Hw[NZ + 1][NZ + 1] = 2.f * p.w_w + mu * (act[4] + act[5]);
+  Hs[sym_w(0, 0)] += mu * act0 * keep + termf * (2.f * p.w_speed) * (Ux >= p.max_speed ? 1.f : 0.f);
+  Hs[sym_w(3, 3)] += mu * (act1 + act2) * keep;
+  Hs[sym_w(NZ + 1, NZ + 1)] = 2.f * p.w_w + mu * (act4 + act5);
   float blo = ey < p.ey_min ? 1.f : 0.f, bhi = ey > p.ey_max ? 1.f : 0.f;
-  Hw[5][5] += 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev * dsn + termf * (2.f * p.w_ey);
-  Hw[6][6] = termf * (2.f * p.w_epsi);
+  Hs[sym_w(5, 5)] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev * dsn + termf * (2.f * p.w_ey);
+  Hs[sym_w(6, 6)] = termf * (2.f * p.w_epsi);
   if (n >= 1) {  // Fx slew against the previous action
     float coef = (2.f * p.w_Fx / dsp) * (FS * FS);
-    Hw[8][8] += coef;
-    Hw[8][NZ] -= coef;
-    Hw[NZ][8] -= coef;
-    Hw[NZ][NZ] += coef;
+    Hs[sym_w(8, 8)] += coef;
+    Hs[sym_w(8, NZ)] -= coef;
+    Hs[sym_w(NZ, NZ)] += coef;
   }
 }
 
-// the Hessian of a point-mass stage's AL cost, all in closed form
+// the Hessian of a point-mass stage's AL cost, packed, all in closed form
 template <int K>
 VCT_HD void pm_hessian(int n, int H, const float wf[NW], const float lam[NC], float mu,
-                       float dsn, float dsp, float dss, const STParams& p, float Hw[NW][NW]) {
+                       float dsn, float dsp, float dss, const STParams& p, float Hs[NSYM]) {
   const float fs = 1.f / FS;
   float c[NC];
   stage_constraints<K>(n, wf, p, c);
   float V = wf[0], ey = wf[2];
   float blo = ey < p.ey_min_pm ? 1.f : 0.f, bhi = ey > p.ey_max_pm ? 1.f : 0.f;
-  Hw[2][2] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev_pm * dsn;
+  Hs[sym_w(2, 2)] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev_pm * dsn;
   // constraint rows: 0 the V floor (linear), 1 the engine power
-  Hw[0][0] += mu * active(lam[0] + mu * c[0]);
+  Hs[sym_w(0, 0)] += mu * active(lam[0] + mu * c[0]);
   float Vm = vmax(V, 1.f);
   float liveV = (V > 1.f ? 1.f : 0.f) + (V == 1.f ? 0.5f : 0.f);  // max's tie rule
   float gV = fs * p.Peng / (Vm * Vm) * liveV;  // d c1 / dV; d c1 / du_Fx = 1
   float lam_hat1 = vmax(lam[1] + mu * c[1], 0.f);
   float a1 = mu * active(lam[1] + mu * c[1]);
-  Hw[0][0] += a1 * gV * gV + lam_hat1 * (-2.f * fs * p.Peng / (Vm * Vm * Vm)) * liveV;
-  Hw[0][NZ] += a1 * gV;
-  Hw[NZ][0] += a1 * gV;
-  Hw[NZ][NZ] += a1;
+  Hs[sym_w(0, 0)] += a1 * gV * gV + lam_hat1 * (-2.f * fs * p.Peng / (Vm * Vm * Vm)) * liveV;
+  Hs[sym_w(0, NZ)] += a1 * gV;
+  Hs[sym_w(NZ, NZ)] += a1;
   if constexpr (K == K_SWITCH) {  // switching cost: Fx against the stash, Fy against z[5]
     float cw = 2.f * p.w_switch_F / dss;
-    Hw[NZ][NZ] += cw * (FS * FS);
-    Hw[NZ][8] -= cw * (FS * FS);
-    Hw[8][NZ] -= cw * (FS * FS);
-    Hw[8][8] += cw * (FS * FS);
-    Hw[NZ + 1][NZ + 1] += cw * (FS * FS);
-    Hw[NZ + 1][5] -= cw * FS;
-    Hw[5][NZ + 1] -= cw * FS;
-    Hw[5][5] += cw;
+    Hs[sym_w(NZ, NZ)] += cw * (FS * FS);
+    Hs[sym_w(8, NZ)] -= cw * (FS * FS);
+    Hs[sym_w(8, 8)] += cw * (FS * FS);
+    Hs[sym_w(NZ + 1, NZ + 1)] += cw * (FS * FS);
+    Hs[sym_w(5, NZ + 1)] -= cw * FS;
+    Hs[sym_w(5, 5)] += cw;
   } else {  // Fx/Fy slew (both previous actions in kN)
     const float w_sl[2] = {p.w_Fx, p.w_Fy};
     for (int j = 0; j < 2; ++j) {
       float coef = (2.f * w_sl[j] / dsp) * (FS * FS);
-      Hw[8 + j][8 + j] += coef;
-      Hw[8 + j][NZ + j] -= coef;
-      Hw[NZ + j][8 + j] -= coef;
-      Hw[NZ + j][NZ + j] += coef;
+      Hs[sym_w(8 + j, 8 + j)] += coef;
+      Hs[sym_w(8 + j, NZ + j)] -= coef;
+      Hs[sym_w(NZ + j, NZ + j)] += coef;
     }
   }
   if (K == K_TERM || n == H - 1) {  // terminal cost on the point-mass fields
-    Hw[0][0] += (2.f * p.w_speed) * (V >= p.max_speed ? 1.f : 0.f);
-    Hw[2][2] += 2.f * p.w_ey;
-    Hw[3][3] += 2.f * p.w_epsi;
+    Hs[sym_w(0, 0)] += (2.f * p.w_speed) * (V >= p.max_speed ? 1.f : 0.f);
+    Hs[sym_w(2, 2)] += 2.f * p.w_ey;
+    Hs[sym_w(3, 3)] += 2.f * p.w_epsi;
   }
 }
 
-// g (NW), unsymmetrized Hessian Hw[r][c] = d2L/dw_r dw_c, Jacobian Jm[r][c]
-// at stage n of kind K
+// g (NW), the Hessian d2L/dw_r dw_c as its packed upper triangle Hs
+// (sym_w), the Jacobian Jm[r][c] at stage n of kind K
 template <int K>
 VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float lam[NC],
                                   float mu, float kv, float dsn, float dsp, float dss,
-                                  const STParams& p, float g[NW], float Hw[NW][NW],
+                                  const STParams& p, float g[NW], float Hs[NSYM],
                                   float Jm[NZ][NW]) {
   {  // gradient of the full AL cost: first-order jets over all 12 inputs
     using J12 = Jet<NW, 1>;
@@ -782,8 +820,7 @@ VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float 
   }
   for (int r = 0; r < NZ; ++r)
     for (int c = 0; c < NW; ++c) Jm[r][c] = 0.f;
-  for (int r = 0; r < NW; ++r)
-    for (int c = 0; c < NW; ++c) Hw[r][c] = 0.f;
+  for (int i = 0; i < NSYM; ++i) Hs[i] = 0.f;
   Jm[8][NZ] = 1.f;  // stash_next = u
   Jm[9][NZ + 1] = 1.f;
   if constexpr (K == K_ST || K == K_ST_TERM) {
@@ -820,9 +857,9 @@ VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float 
     Jm[4][4] = 1.f;  // t_next = t + ds / s_dot_eff
   }
   if constexpr (st_kind<K>())
-    st_hessian<K>(n, wf, lam, mu, dsn, dsp, p, Hw);
+    st_hessian<K>(n, wf, lam, mu, dsn, dsp, p, Hs);
   else
-    pm_hessian<K>(n, H, wf, lam, mu, dsn, dsp, dss, p, Hw);
+    pm_hessian<K>(n, H, wf, lam, mu, dsn, dsp, dss, p, Hs);
 }
 
 // -- per-lane kernel bodies ----------------------------------------------------------------

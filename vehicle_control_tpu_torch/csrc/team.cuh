@@ -46,7 +46,6 @@ static_assert(TEAM >= 1 && TEAM <= 32 && 32 % TEAM == 0, "a team divides a warp"
 constexpr int TEAM_BLOCK = 128;  // threads per block of kernels 2 and 3
 
 // the chunk's slots
-constexpr int NSYM = NW * (NW + 1) / 2;  // 78
 constexpr int JCOLS = 10;                // live Jacobian columns: 0-7, u_Fx, u1
 constexpr int SLOT_G = 0, SLOT_H = NW, SLOT_J = NW + NSYM;
 constexpr int SLOT = SLOT_J + 8 * JCOLS;  // 170
@@ -110,11 +109,8 @@ VCT_HD void for_member_stages(int t, int H, const STParams& p, F&& f) {
   }
 }
 
-// packed upper-triangle indices of a symmetric matrix of order NW or NZ
-VCT_HD int sym_w(int r, int c) {
-  if (r > c) { int x = r; r = c; c = x; }
-  return r * (2 * NW - r + 1) / 2 + c - r;
-}
+// packed upper-triangle indices of a symmetric matrix of order NZ (of
+// order NW: sym_w in singletrack.cuh)
 VCT_HD int sym_z(int r, int c) {
   if (r > c) { int x = r; r = c; c = x; }
   return r * (2 * NZ - r + 1) / 2 + c - r;
@@ -133,21 +129,19 @@ VCT_HD float jm(const float* slot, int k, int c) {
   return slot[SLOT_J + k * JCOLS + (c < 8 ? c : c - 2)];
 }
 
-// stage n's derivatives (stage_derivs, unchanged) into its slot: g, the
-// Hessian symmetrized as the Riccati step reads it, the Jacobian's live block
+// stage n's derivatives (stage_derivs) into its slot: g, the packed
+// Hessian as stage_derivs gives it, the Jacobian's live block
 template <int K>
 VCT_HD void derivs_to_slot(int n, int b, int B, int H, const float* X, const float* U,
                            const float* lam, float mu, const float* curv, const float* ds,
                            float dss, const STParams& p, float* slot) {
-  float wf[NW], lamv[NC], g[NW], Hw[NW][NW], Jm[NZ][NW];
+  float wf[NW], lamv[NC], Jm[NZ][NW];
   for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
   for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
   for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
   const float dsp = ds[(n > 0 ? n - 1 : 0) * B + b];
-  stage_derivs<K>(n, H, wf, lamv, mu, curv[n * B + b], ds[n * B + b], dsp, dss, p, g, Hw, Jm);
-  for (int i = 0; i < NW; ++i) slot[SLOT_G + i] = g[i];
-  for (int r = 0; r < NW; ++r)
-    for (int c = r; c < NW; ++c) slot[SLOT_H + sym_w(r, c)] = 0.5f * (Hw[r][c] + Hw[c][r]);
+  stage_derivs<K>(n, H, wf, lamv, mu, curv[n * B + b], ds[n * B + b], dsp, dss, p,
+                  slot + SLOT_G, slot + SLOT_H, Jm);
   for (int k = 0; k < 8; ++k)
     for (int c = 0; c < NW; ++c)
       if (c != 8 && c != 9) slot[SLOT_J + k * JCOLS + (c < 8 ? c : c - 2)] = Jm[k][c];
