@@ -721,38 +721,74 @@ VCT_HD T st_block(const T x[4], const T& Fx, const float lam[NC], float mu, cons
   return cost + pen / (2.f * mu);
 }
 
-// the Hessian of a single-track stage's AL cost (the seam's included),
-// packed: the nonquadratic block by one second-order jet pass (st_block),
-// the rest in closed form
+// d/dx of a PHR row over 2 mu: max(0, lam + mu c) dc/dx; its curvature
+// along the row: mu active(lam + mu c)
+VCT_HD float phr_slope(float lam, float mu, float c) { return vmax(lam + mu * c, 0.f); }
+
+// d/dey of the boundary cost: w_boundary dsn 2 (ey - bound) beyond a bound
+VCT_HD float boundary_slope(float ey, float dsn, float lo, float hi, const STParams& p) {
+  float below = ey < lo ? 2.f * (ey - lo) : 0.f, above = ey > hi ? 2.f * (ey - hi) : 0.f;
+  return p.w_boundary * dsn * (below + above);
+}
+
+// the terminal cost's gradient on (speed, ey, epsi, t) into g at those indices
+VCT_HD void terminal_slope(float speed, float ey, float epsi, const int at[4], const STParams& p,
+                           float g[NW]) {
+  g[at[0]] += speed >= p.max_speed ? p.w_speed * (2.f * (speed - p.max_speed)) : 0.f;
+  g[at[1]] += p.w_ey * (2.f * ey);
+  g[at[2]] += p.w_epsi * (2.f * epsi);
+  g[at[3]] += p.w_time;
+}
+
+// The gradient and the packed Hessian of a single-track stage's AL cost
+// (the seam's included): the nonquadratic part over (Ux, Uy, r, delta,
+// u_Fx) by one second-order jet pass (st_block), the rest in closed form:
+// the boundary, deviation, w, slew and terminal terms and the linear
+// constraint rows 0-2 (constants at stage 0), 4 and 5
 template <int K>
-VCT_HD void st_hessian(int n, const float wf[NW], const float lam[NC], float mu, float dsn,
-                       float dsp, const STParams& p, float Hs[NSYM]) {
-  {  // nonquadratic block over (Ux, Uy, r, delta, u_Fx)
+VCT_HD void st_cost_derivs(int n, const float wf[NW], const float lam[NC], float mu, float dsn,
+                           float dsp, const STParams& p, float g[NW], float Hs[NSYM]) {
+  {
     using H5 = Jet<5, 2>;
     const int vidx[5] = {0, 1, 2, 3, NZ};
     H5 x[4];
     for (int i = 0; i < 4; ++i) x[i] = seed<5, 2>(wf[i], i);
     H5 block = st_block(x, seed<5, 2>(wf[NZ], 4) * FS, lam, mu, p);
-    for (int i = 0; i < 5; ++i)
+    for (int i = 0; i < 5; ++i) {
+      g[vidx[i]] = block.d[i];
       for (int j = i; j < 5; ++j) Hs[sym_w(vidx[i], vidx[j])] = hess(block, i, j);
+    }
   }
-  // closed-form quadratic / piecewise-quadratic entries; the linear
-  // constraint rows 0-2 (masked at stage 0), 4 and 5
   const float Ux = wf[0], delta = wf[3], ey = wf[5], wact = wf[NZ + 1];
-  const float act0 = active(lam[0] + mu * (p.Ux_min - Ux));
-  const float act1 = active(lam[1] + mu * (delta - p.delta_max));
-  const float act2 = active(lam[2] + mu * (p.delta_min - delta));
-  const float act4 = active(lam[4] + mu * (wact - p.w_max));
-  const float act5 = active(lam[5] + mu * (p.w_min - wact));
-  float keep = n == 0 ? 0.f : 1.f;
-  float termf = K == K_ST_TERM ? 1.f : 0.f;
-  Hs[sym_w(0, 0)] += mu * act0 * keep + termf * (2.f * p.w_speed) * (Ux >= p.max_speed ? 1.f : 0.f);
-  Hs[sym_w(3, 3)] += mu * (act1 + act2) * keep;
-  Hs[sym_w(NZ + 1, NZ + 1)] = 2.f * p.w_w + mu * (act4 + act5);
+  const float crow[5] = {p.Ux_min - Ux, delta - p.delta_max, p.delta_min - delta,
+                         wact - p.w_max, p.w_min - wact};  // rows 0, 1, 2, 4, 5
+  const int lrow[5] = {0, 1, 2, 4, 5};
+  float slope[5], act[5];
+  for (int j = 0; j < 5; ++j) {
+    slope[j] = phr_slope(lam[lrow[j]], mu, crow[j]);
+    act[j] = active(lam[lrow[j]] + mu * crow[j]);
+  }
+  const float keep = n == 0 ? 0.f : 1.f;
+  g[0] -= slope[0] * keep;
+  g[3] += (slope[1] - slope[2]) * keep;
+  g[NZ + 1] = p.w_w * (2.f * wact) + (slope[3] - slope[4]);
+  g[5] = boundary_slope(ey, dsn, p.ey_min, p.ey_max, p) + (p.w_dev * dsn) * (2.f * ey);
+  float termf = 0.f;
+  if constexpr (K == K_ST_TERM) {
+    const int at[4] = {0, 5, 6, 7};
+    terminal_slope(Ux, ey, wf[6], at, p, g);
+    termf = 1.f;
+  }
+  Hs[sym_w(0, 0)] += mu * act[0] * keep + termf * (2.f * p.w_speed) * (Ux >= p.max_speed ? 1.f : 0.f);
+  Hs[sym_w(3, 3)] += mu * (act[1] + act[2]) * keep;
+  Hs[sym_w(NZ + 1, NZ + 1)] = 2.f * p.w_w + mu * (act[3] + act[4]);
   float blo = ey < p.ey_min ? 1.f : 0.f, bhi = ey > p.ey_max ? 1.f : 0.f;
   Hs[sym_w(5, 5)] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev * dsn + termf * (2.f * p.w_ey);
   Hs[sym_w(6, 6)] = termf * (2.f * p.w_epsi);
   if (n >= 1) {  // Fx slew against the previous action
+    float slew = (p.w_Fx / dsp) * (2.f * (wf[NZ] * FS - wf[8] * FS)) * FS;
+    g[NZ] += slew;
+    g[8] -= slew;
     float coef = (2.f * p.w_Fx / dsp) * (FS * FS);
     Hs[sym_w(8, 8)] += coef;
     Hs[sym_w(8, NZ)] -= coef;
@@ -760,27 +796,40 @@ VCT_HD void st_hessian(int n, const float wf[NW], const float lam[NC], float mu,
   }
 }
 
-// the Hessian of a point-mass stage's AL cost, packed, all in closed form
+// the gradient and the packed Hessian of a point-mass stage's AL cost, all
+// in closed form (rows 2-9 of its constraints are constants)
 template <int K>
-VCT_HD void pm_hessian(int n, int H, const float wf[NW], const float lam[NC], float mu,
-                       float dsn, float dsp, float dss, const STParams& p, float Hs[NSYM]) {
+VCT_HD void pm_cost_derivs(int n, int H, const float wf[NW], const float lam[NC], float mu,
+                           float dsn, float dsp, float dss, const STParams& p, float g[NW],
+                           float Hs[NSYM]) {
   const float fs = 1.f / FS;
-  float c[NC];
-  stage_constraints<K>(n, wf, p, c);
   float V = wf[0], ey = wf[2];
+  g[2] = boundary_slope(ey, dsn, p.ey_min_pm, p.ey_max_pm, p) + (p.w_dev_pm * dsn) * (2.f * ey);
   float blo = ey < p.ey_min_pm ? 1.f : 0.f, bhi = ey > p.ey_max_pm ? 1.f : 0.f;
   Hs[sym_w(2, 2)] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev_pm * dsn;
   // constraint rows: 0 the V floor (linear), 1 the engine power
-  Hs[sym_w(0, 0)] += mu * active(lam[0] + mu * c[0]);
+  const float c0 = p.V_min - V;
+  g[0] -= phr_slope(lam[0], mu, c0);
+  Hs[sym_w(0, 0)] += mu * active(lam[0] + mu * c0);
   float Vm = vmax(V, 1.f);
+  const float c1 = (wf[NZ] * FS - p.Peng / Vm) * fs;
   float liveV = (V > 1.f ? 1.f : 0.f) + (V == 1.f ? 0.5f : 0.f);  // max's tie rule
   float gV = fs * p.Peng / (Vm * Vm) * liveV;  // d c1 / dV; d c1 / du_Fx = 1
-  float lam_hat1 = vmax(lam[1] + mu * c[1], 0.f);
-  float a1 = mu * active(lam[1] + mu * c[1]);
+  float lam_hat1 = phr_slope(lam[1], mu, c1);
+  float a1 = mu * active(lam[1] + mu * c1);
+  g[0] += lam_hat1 * gV;
+  g[NZ] += lam_hat1;
   Hs[sym_w(0, 0)] += a1 * gV * gV + lam_hat1 * (-2.f * fs * p.Peng / (Vm * Vm * Vm)) * liveV;
   Hs[sym_w(0, NZ)] += a1 * gV;
   Hs[sym_w(NZ, NZ)] += a1;
   if constexpr (K == K_SWITCH) {  // switching cost: Fx against the stash, Fy against z[5]
+    const float ws = p.w_switch_F / dss;
+    const float dFx = ws * (2.f * (wf[NZ] * FS - wf[8] * FS)) * FS;
+    const float dFy = ws * (2.f * (wf[NZ + 1] * FS - wf[5]));
+    g[NZ] += dFx;
+    g[8] -= dFx;
+    g[NZ + 1] += dFy * FS;
+    g[5] -= dFy;
     float cw = 2.f * p.w_switch_F / dss;
     Hs[sym_w(NZ, NZ)] += cw * (FS * FS);
     Hs[sym_w(8, NZ)] -= cw * (FS * FS);
@@ -791,6 +840,9 @@ VCT_HD void pm_hessian(int n, int H, const float wf[NW], const float lam[NC], fl
   } else {  // Fx/Fy slew (both previous actions in kN)
     const float w_sl[2] = {p.w_Fx, p.w_Fy};
     for (int j = 0; j < 2; ++j) {
+      float slew = (w_sl[j] / dsp) * (2.f * (wf[NZ + j] * FS - wf[8 + j] * FS)) * FS;
+      g[NZ + j] += slew;
+      g[8 + j] -= slew;
       float coef = (2.f * w_sl[j] / dsp) * (FS * FS);
       Hs[sym_w(8 + j, 8 + j)] += coef;
       Hs[sym_w(8 + j, NZ + j)] -= coef;
@@ -798,6 +850,8 @@ VCT_HD void pm_hessian(int n, int H, const float wf[NW], const float lam[NC], fl
     }
   }
   if (K == K_TERM || n == H - 1) {  // terminal cost on the point-mass fields
+    const int at[4] = {0, 2, 3, 4};
+    terminal_slope(V, ey, wf[3], at, p, g);
     Hs[sym_w(0, 0)] += (2.f * p.w_speed) * (V >= p.max_speed ? 1.f : 0.f);
     Hs[sym_w(2, 2)] += 2.f * p.w_ey;
     Hs[sym_w(3, 3)] += 2.f * p.w_epsi;
@@ -811,15 +865,9 @@ VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float 
                                   float mu, float kv, float dsn, float dsp, float dss,
                                   const STParams& p, float g[NW], float Hs[NSYM],
                                   float Jm[NZ][NW]) {
-  {  // gradient of the full AL cost: first-order jets over all 12 inputs
-    using J12 = Jet<NW, 1>;
-    J12 w[NW];
-    for (int i = 0; i < NW; ++i) w[i] = seed<NW, 1>(wf[i], i);
-    J12 L = al_cost<K>(n, H, w, lam, mu, dsn, dsp, dss, p);
-    for (int i = 0; i < NW; ++i) g[i] = L.d[i];
-  }
   for (int r = 0; r < NZ; ++r)
     for (int c = 0; c < NW; ++c) Jm[r][c] = 0.f;
+  for (int i = 0; i < NW; ++i) g[i] = 0.f;
   for (int i = 0; i < NSYM; ++i) Hs[i] = 0.f;
   Jm[8][NZ] = 1.f;  // stash_next = u
   Jm[9][NZ + 1] = 1.f;
@@ -857,9 +905,9 @@ VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float 
     Jm[4][4] = 1.f;  // t_next = t + ds / s_dot_eff
   }
   if constexpr (st_kind<K>())
-    st_hessian<K>(n, wf, lam, mu, dsn, dsp, p, Hs);
+    st_cost_derivs<K>(n, wf, lam, mu, dsn, dsp, p, g, Hs);
   else
-    pm_hessian<K>(n, H, wf, lam, mu, dsn, dsp, dss, p, Hs);
+    pm_cost_derivs<K>(n, H, wf, lam, mu, dsn, dsp, dss, p, g, Hs);
 }
 
 // -- per-lane kernel bodies ----------------------------------------------------------------
