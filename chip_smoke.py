@@ -74,7 +74,8 @@ FAMILIES = {  # controller config, tail, horizon cut, budget (bench.py's family 
 # kernel's is at most QUANT_FACTOR x the plain's plus a floor of f32
 # rounding over H stages (the worst lanes, q0.999 and max, are chaotic in
 # both and are printed, not gated); +inf lanes and flags stay identical.
-# Kernel 5 computes kernel 1's costs and is held to kernel 1's gates.
+# Kernel 5 runs kernel 1's block schedule from the (B, H, F) layout: it is
+# held to kernel 1's gates and to kernel 1's costs bit for bit.
 # Knife-edge lanes: a rollout that crosses the 1e7 state guard, or a solve
 # lane that runs to V ~ 0, may fall on either side of a gate in two f32
 # versions that round differently.  Where the kernel misses a lane-by-lane
@@ -623,9 +624,16 @@ def run_family(label, env):
         ls_args = (X, U, ref[0].contiguous(), ref[1].contiguous(), lam, mu, curv, ds, z0)
         costs_ref = linesearch_costs_plain(fam, alphas, *ls_args)
         costs64 = linesearch_costs_plain(fam, alphas, *(a.double() for a in ls_args))
+        k1_costs = None
         for name, kern in (("kernel 1", ls_kernel), ("kernel 5", aos_kernel)):
             costs = kern(*ls_args)
             torch.cuda.synchronize()
+            if k1_costs is None:
+                k1_costs = costs
+            elif not same_bits(costs, k1_costs):
+                raise RuntimeError(f"kernel 5 ({cond}): not kernel 1's costs bit for bit on "
+                                   f"{int((costs.view(torch.int32) != k1_costs.view(torch.int32)).sum())} "
+                                   f"of {costs.numel()} rollouts")
             # the disputed rollouts' lanes on copies of their inputs one ulp apart
             lanes = (torch.isposinf(costs) != torch.isposinf(costs_ref)).any(0).nonzero()[:, 0]
             copies = None
@@ -651,6 +659,8 @@ def run_family(label, env):
                                                 cost_errors(costs[fin], costs64[fin]),
                                                 cost_errors(costs_ref[fin], costs64[fin]),
                                                 LS_FLOOR)
+            if kern is aos_kernel:
+                row += ",kernel1_bits:same"
             ls_rows[f"{'k1' if kern is ls_kernel else 'k5'}_{cond}"] = row
         if not torch.equal(got[4], ref[4]):
             raise RuntimeError(f"kernel 2 ({cond}): fail flags differ on "
@@ -684,11 +694,13 @@ def run_family(label, env):
     phase(f"{label}:kernel2_vs_plain", **shape, rho_well=RHO_WELL, rho_solver=cfg.rho0,
           max_abs_err_well=f"{bw_abs:.3e}", **bw_rows)
 
-    # the launch shapes of kernels 1 and 4 at the family's shapes
+    # the launch shapes of kernels 1, 5 and 4 at the family's shapes
     lib = cuda_lib.load_library()
     launch_shapes = dict(ls=cuda_lib.launch_info(lib.vct_linesearch_fm_info, B, len(alphas)),
+                         aos=cuda_lib.launch_info(lib.vct_linesearch_aos_info, B, len(alphas)),
                          dv=cuda_lib.launch_info(lib.vct_derivs_fm_info, B, H))
     phase(f"{label}:launch:linesearch_fm", B=B, A=len(alphas), **launch_shapes["ls"])
+    phase(f"{label}:launch:linesearch_aos", B=B, A=len(alphas), **launch_shapes["aos"])
     phase(f"{label}:launch:derivs_fm", B=B, H=H, **launch_shapes["dv"])
 
     # kernel 4 against its plain version (no rho: a direct check)

@@ -4,9 +4,12 @@ NVIDIA GPU.
 Builds, all at once, the port's kernel library (``csrc/``, "port") and
 variants of some of its kernels from the same sources, which differ only in
 nvcc flags (``VARIANTS``: teams of 8 and no FMA contraction for kernels 2
-and 3).  With ``--baseline DIR`` it also builds every kernel from the
-``.cu`` files in DIR (for example an earlier commit's ``csrc/``, unpacked
-into an ignored folder), which must take the same C arguments.
+and 3).  With ``--baseline [NAME=]DIR`` (repeatable) it also builds every
+kernel from the ``.cu`` files in DIR (for example an earlier commit's
+``csrc/``, unpacked into an ignored folder), which must take the same C
+arguments; each build's stage-derivative functions are counted in its SASS
+(``sass_counts``: f32 and all instructions of ``stage_derivs`` and the RK4
+Jacobian, a static count).
 
 Then, for the single-track family and the cascade at ``chip_smoke.py``'s
 shapes and budgets, on the same warm-started inputs
@@ -19,13 +22,18 @@ pass's gains), each on inputs already in its layout, the builds in turns
 sampled beside them (``chip_smoke.sampled_clocks``).  It reports each
 build's median, minimum and timing modes with their clocks, whether its
 kernels 1, 2, 3 and 5 give the port's outputs bit for bit (kernels 1 and 5
-at both of ``chip_smoke.py``'s regularizations), kernel 4's largest
-difference from the port's, and for kernel 3 each build's distance from the
-plain version in ``chip_smoke.py``'s check (i) (one outer x one inner
-iteration at rho0 = 1).
+at both of ``chip_smoke.py``'s regularizations, and kernel 5 kernel 1's of
+the same build), kernel 4's largest difference from the port's, and, as
+the builds' derivatives need not round alike, each build's kernels 2 and 3
+under ``chip_smoke.py``'s gates against the plain versions: kernel 2 at rho
+= 1 (BW_TOL against the plain f32 version) and at the solver's rho0 (the
+lane errors' quantiles against f64, beside the plain f32 version's, held
+to QUANT_FACTOR), kernel 3 in check (i) (one outer x one inner iteration at
+rho0 = 1) and check (ii) (the main path's budget on the cold first solve
+against f64, ``solve_gates``).
 
-    python3 kernel_ab.py [--baseline DIR] [--variants team8,team4_no_fma] [--reps 10]
-                         [--out FILE]
+    python3 kernel_ab.py [--baseline [NAME=]DIR ...] [--variants team8,team4_no_fma]
+                         [--reps 10] [--out FILE]
 
 Prints the card's ``nvidia-smi`` name and power limit, one line per build
 and family, and a JSON line of all numbers (also written to FILE).
@@ -34,11 +42,15 @@ and family, and a JSON line of all numbers (also written to FILE).
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import glob
 import json
 import os
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -53,7 +65,7 @@ KERNELS = {  # kernel -> (C entry, source, launch-shape entry or None)
     "backward": ("vct_backward_fm", "backward_fm.cu", "vct_backward_fm_info"),
     "derivs": ("vct_derivs_fm", "derivs_fm.cu", "vct_derivs_fm_info"),
     "linesearch": ("vct_linesearch_fm", "rollout_fm.cu", "vct_linesearch_fm_info"),
-    "aos": ("vct_linesearch_aos", "rollout_aos.cu", None),
+    "aos": ("vct_linesearch_aos", "rollout_aos.cu", "vct_linesearch_aos_info"),
 }
 VARIANTS = {  # build -> (its kernels, extra nvcc flags); the port's library is "port"
     "team8": (("solve", "backward"), ("-DVCT_TEAM=8",)),
@@ -61,12 +73,13 @@ VARIANTS = {  # build -> (its kernels, extra nvcc flags); the port's library is 
 }
 _, _, _ST_HORIZON, _ST_BUDGET = chip_smoke.FAMILIES["singletrack"]
 LAUNCH_SHAPE = {"derivs": (_ST_HORIZON["horizon"],),  # the printed launch shapes: H, A
-                "linesearch": (_ST_BUDGET["n_alpha"],)}
+                "linesearch": (_ST_BUDGET["n_alpha"],), "aos": (_ST_BUDGET["n_alpha"],)}
 CONDS = ("well", "rho0")  # kernels 1 and 5: rho = RHO_WELL and the solver's rho0
 
 
-def build_all(baseline, variants):
-    """{build: (library path, its kernels, seconds)}, the builds run side by side."""
+def build_all(baselines, variants):
+    """{build: (library path, its kernels, seconds)}, the builds run side by
+    side; ``baselines``: {name: folder of .cu sources}."""
     from vehicle_control_tpu_torch.solvers import cuda_lib
 
     jobs = {"port": (tuple(KERNELS), dict())}
@@ -75,11 +88,11 @@ def build_all(baseline, variants):
         jobs[name] = (kernels, dict(sources=[os.path.join(cuda_lib.CSRC, KERNELS[k][1])
                                              for k in kernels],
                                     flags=cuda_lib.NVCC_FLAGS + extra))
-    if baseline:
-        sources = sorted(glob.glob(os.path.join(baseline, "*.cu")))
+    for name, folder in baselines.items():
+        sources = sorted(glob.glob(os.path.join(folder, "*.cu")))
         have = {os.path.basename(s) for s in sources}
-        jobs["baseline"] = (tuple(k for k, v in KERNELS.items() if v[1] in have),
-                            dict(sources=sources))
+        jobs[name] = (tuple(k for k, v in KERNELS.items() if v[1] in have),
+                      dict(sources=sources))
 
     def timed(kw):
         t0 = time.perf_counter()
@@ -99,6 +112,35 @@ def load(path, kernels):
     names = [KERNELS[k][0] for k in kernels]
     names += [KERNELS[k][2] for k in kernels if KERNELS[k][2] and hasattr(lib, KERNELS[k][2])]
     return cuda_lib.declare(lib, names)
+
+
+# the SASS opcodes counted as f32 operations (the FP32 pipe and the special
+# function unit), and the functions of the stage derivatives
+F32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET", "MUFU", "FCHK", "FRND",
+           "FSWZADD")
+SASS_FUNCS = ("stage_derivs", "rk4_jacobian", "derivs_fm_kernel")
+
+
+def sass_counts(lib_path):
+    """{function: {kind: (f32 instructions, all instructions)}}: a static
+    count over the SASS of the build's stage-derivative functions
+    (``cuobjdump -sass``), one entry per stage kind (its template argument);
+    empty without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True).stdout
+    counts = collections.defaultdict(dict)
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        for key in SASS_FUNCS:
+            if key in name:
+                kind = re.search(r"ILi(\d+)E", name)
+                ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+                                 block)
+                f32 = sum(1 for o in ops if o.split(".")[0] in F32_OPS)
+                counts[key][kind.group(1) if kind else "-"] = (f32, len(ops))
+    return {k: dict(v) for k, v in counts.items()}
 
 
 def modes(times):
@@ -123,6 +165,57 @@ def max_diff(a, b):
     fin = torch.isfinite(a) & torch.isfinite(b)
     same_nonfinite = torch.equal(torch.isfinite(a), torch.isfinite(b))
     return (a[fin] - b[fin]).abs().max().item(), same_nonfinite
+
+
+def backward_gates(fam, w, rho0, libs, params, stream):
+    """{build: row}: each build's kernel 2 under chip_smoke.py's gates, at
+    rho = RHO_WELL against the plain f32 version (BW_TOL, flags identical)
+    and at the solver's rho0 against the plain version in f64 (each
+    output's lane-error quantiles, the plain f32 version's beside, held to
+    QUANT_FACTOR: ``chip_smoke.as_accurate``)."""
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+    from vehicle_control_tpu_torch.solvers.backward_kernel_fm import backward_plain
+
+    H, NZ, NU = fam.H, fam.NZ, fam.NU
+    B, f32 = chip_smoke.B, dict(dtype=torch.float32, device=rho0.device)
+    base = (w["X"], w["U"], w["lam"], w["mu"])
+    rhos = dict(well=torch.full((B,), chip_smoke.RHO_WELL, **f32), rho0=rho0)
+    refs = {c: backward_plain(fam, *base, r, w["curv"], w["ds"]) for c, r in rhos.items()}
+    ref64 = backward_plain(fam, *(t.double() for t in base + (rho0, w["curv"], w["ds"])))
+    keys = ("kff", "Kfb", "dV1", "dV2")
+    rows = {}
+    for n, (lib, kernels) in libs.items():
+        if "backward" not in kernels:
+            continue
+        row = {}
+        for cond, rho in rhos.items():
+            ins = [cuda_lib.soa(t) for t in base + (rho, w["curv"], w["ds"])]
+            out = [torch.empty(s, **f32) for s in ((H, NU, B), (H, NU, NZ, B), (2, B), (B,))]
+            ccall(lib, "vct_backward_fm", params.ctypes.data, *ptrs(ins + out), B, H, stream)
+            torch.cuda.synchronize()
+            got = (out[0].movedim(-1, 0), out[1].movedim(-1, 0), out[2][0], out[2][1])
+            ref = refs[cond]
+            ok = chip_smoke.finite_lanes(ref[:4]) & chip_smoke.finite_lanes(got)
+            flags = torch.equal(out[3] > 0.5, ref[4])
+            if cond == "well":
+                err = max(chip_smoke.lane_errors(a[ok], b[ok]).max().item()
+                          for a, b in zip(got, ref[:4]))
+                row.update(bw_well_max=err, bw_well_pass=flags and err <= chip_smoke.BW_TOL)
+                continue
+            ok = ok & chip_smoke.finite_lanes(ref64[:4])
+            passed = flags
+            for key, a, b, c in zip(keys, got, ref[:4], ref64[:4]):
+                ke, pe = (chip_smoke.lane_errors(t[ok], c[ok]) for t in (a, b))
+                try:
+                    row[f"bw_rho0_{key}"] = chip_smoke.as_accurate(key, ke, pe, chip_smoke.BW_FLOOR)
+                except RuntimeError:
+                    passed = False
+                    row[f"bw_rho0_{key}"] = ",".join(
+                        f"q{q:g}:{torch.quantile(ke, q).item():.2e}/"
+                        f"{torch.quantile(pe, q).item():.2e}" for q in (*chip_smoke.QUANT_FACTOR, 1.0))
+            row["bw_rho0_pass"] = passed
+        rows[n] = row
+    return rows
 
 
 def run_family(label, env, libs, reps):
@@ -205,6 +298,10 @@ def run_family(label, env, libs, reps):
     well = chip_smoke.well_config(budget)
     ref = solve_plain(fam, well, *(w[k] for k in ("z0", "U_init", "lam", "curv", "ds")),
                       trace=True)
+    # and check (ii): the main path's budget on the cold first solve against f64
+    first_args, first_ref, _ = w["first"]
+    first_in = [cuda_lib.soa(t) for t in first_args]
+    first_64 = solve_plain(fam, cfg, *(t.double() for t in first_args), trace=True)
     well_rows = {}
     for n in names:
         if "solve" not in calls[n]:
@@ -218,8 +315,19 @@ def run_family(label, env, libs, reps):
             well_X_max=chip_smoke.lane_errors(X[same], ref[0][same]).max().item(),
             well_U_max=chip_smoke.lane_errors(U[same], ref[1][same]).max().item(),
             well_U_worst=chip_smoke.worst_entry(U[same], ref[1][same]))
+        ccall(libs[n][0], "vct_solve_fm", params.ctypes.data, ctypes.addressof(scfg),
+              *ptrs(first_in + o), B, H, stream)
+        torch.cuda.synchronize()
+        st = o[5]
+        got = (None, None, None, st[0], st[1], st[2] > 0.5, st[3].to(torch.int32),
+               dict(first_alpha=st[4], inner_runs=st[5].to(torch.int32)))
+        rows, passed = chip_smoke.solve_gates(got, first_ref, first_64)
+        well_rows[n].update(cold_gates_pass=passed, cold_conv=rows["conv"],
+                            cold_flips_vs_f64=rows["flips_vs_f64"],
+                            cold_cost_median_vs_f64=rows["cost_median_vs_f64"])
         calls[n]["solve"]()  # the main path's budget again, for the comparisons below
     torch.cuda.synchronize()
+    bw_rows = backward_gates(fam, w, rho0, libs, params, stream)
     res, port = {}, outs["port"]
     for n in names:
         o, row = outs[n], {}
@@ -241,6 +349,7 @@ def run_family(label, env, libs, reps):
                                           zip(o["backward"], port["backward"]))
             row["backward_fail_lanes"] = (f"{int(o['backward'][3].sum())}/"
                                           f"{int(port['backward'][3].sum())}")
+            row.update(bw_rows[n])
         if "derivs" in calls[n]:
             diffs = [max_diff(a, b) for a, b in zip(o["derivs"], port["derivs"])]
             row["derivs_max_abs_diff"] = max(d for d, _ in diffs)
@@ -249,6 +358,9 @@ def run_family(label, env, libs, reps):
             if k in calls[n]:
                 for c in CONDS:
                     row[f"{k}_{c}_bitwise"] = chip_smoke.same_bits(o[k][c], port[k][c])
+        if "linesearch" in calls[n] and "aos" in calls[n]:
+            row["aos_is_k1_bitwise"] = all(chip_smoke.same_bits(o["aos"][c], o["linesearch"][c])
+                                           for c in CONDS)
         res[n] = row
         chip_smoke.phase(f"{label}:{n}", **shape,
                          **{k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in row.items()})
@@ -257,7 +369,9 @@ def run_family(label, env, libs, reps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", help="a folder with an earlier build's .cu sources to compare")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="[NAME=]DIR: a folder with an earlier build's .cu sources to compare "
+                         "(repeatable; NAME defaults to 'baseline')")
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help=f"comma-separated builds of {sorted(VARIANTS)}, or '' for none")
     ap.add_argument("--reps", type=int, default=10)
@@ -273,7 +387,8 @@ def main() -> int:
     _, smi = chip_smoke.card_line()
     print(smi, flush=True)
     variants = [v for v in args.variants.split(",") if v]
-    built = build_all(args.baseline, variants)
+    baselines = dict(b.split("=", 1) if "=" in b else ("baseline", b) for b in args.baseline)
+    built = build_all(baselines, variants)
     libs, builds = {}, {}
     for name, (path, kernels, seconds) in built.items():
         lib = load(path, kernels)
@@ -291,6 +406,9 @@ def main() -> int:
                             if f in ("registers", "stack_bytes", "smem_bytes_per_block",
                                      "warps_per_sm")})
         chip_smoke.print_ptxas(path)
+        builds[name]["sass"] = sass_counts(path)
+        chip_smoke.phase(f"sass:{name}", **{f"{f}_{k}": f"{c[0]}/{c[1]}" for f, kinds in
+                                            builds[name]["sass"].items() for k, c in kinds.items()})
     env = chip_smoke.make_env(dev)
     families = {label: run_family(label, env, libs, args.reps) for label in chip_smoke.FAMILIES}
     line = json.dumps(dict(card=smi, reps=args.reps, builds=builds, families=families))

@@ -272,15 +272,14 @@ def test_closed_loop_step_launches_both_kernels(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["none", "pm"])
 def test_aos_kernel_matches_kernel1(inputs, pm_inputs, family):
-    """Kernel 5 reads the (B, H, F) tensors in place and gives kernel 1's costs."""
+    """Kernel 5 reads the (B, H, F) tensors in place and, through kernel 1's
+    block schedule, gives kernel 1's costs bit for bit."""
     fam, X, U, lam, mu, _, curv, ds, z0, kff, Kfb = inputs if family == "none" else pm_inputs
     args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
     aos, ls = LinesearchKernelAoS(fam, ALPHAS), LinesearchKernelFM(fam, ALPHAS)
     got, ref = aos(*args), ls(*args)
     assert aos.launches == 1 and got.shape == (len(ALPHAS), B)
-    torch.testing.assert_close(torch.isposinf(got), torch.isposinf(ref))
-    fin = torch.isfinite(ref)
-    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda

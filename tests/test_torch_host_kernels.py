@@ -1,12 +1,13 @@
-"""Kernels 1-4's lane bodies, built with the host compiler, on the CPU.
+"""Kernels 1-5's lane bodies, built with the host compiler, on the CPU.
 
 ``csrc/host_driver.cpp`` compiles the lane bodies of ``csrc/team.cuh``
 (kernel 2, the backward pass), ``csrc/solve_fm.cu`` (kernel 3, the whole
-solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives) and
-``csrc/rollout_fm.cu`` (kernel 1, the line search from staged stage
-records) with g++ into ``build/host/``; each scenario's team of TEAM
-members is emulated in one thread, phase by phase, and kernel 1's blocks
-(its schedule, ``linesearch_block``) phase by phase.  Two builds, compiled side by side: the kernels' team of 4,
+solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives),
+``csrc/rollout_fm.cu`` and ``csrc/rollout_aos.cu`` (kernels 1 and 5, the
+line search from staged stage records) with g++ into ``build/host/``; each
+scenario's team of TEAM members is emulated in one thread, phase by phase,
+and the line search's blocks (its schedule, ``linesearch_block``) phase by
+phase.  Two builds, compiled side by side: the kernels' team of 4,
 and teams of 8.  The test decides whether g++ exists when it runs, and skips
 without it.
 
@@ -24,12 +25,16 @@ beyond the state guard and from a NaN.  Tolerances (those of
 - early_exit x ls_fast_path, and the members run in the other order, change
   no output bit;
 - kernel 4's lane at inputs where the Hessian's second-order block is
-  live: g, Hw and J within DV_TOL of each lane's largest magnitude;
+  live, and at the edges of its closed forms (the masked rows of stage 0,
+  the seam, the terminal stage, a PHR row at lam + mu c = 0 exactly, Ux at
+  max_speed, ey at its bound, the state clamps at their ties): g, Hw and J
+  within DV_TOL of each lane's largest magnitude, Hw symmetric bit for bit;
 - kernel 1: the staged blocks (the kernel's own schedule,
   linesearch_block: rollout and cost warps, one chunk apart; threads in
   either order) give the one-lane rollouts' costs (linesearch_lane, within
   LS_RTOL of the plain version) bit for bit, with step sizes that fit the
-  warps of a block and with more.
+  warps of a block and with more; kernel 5's blocks (the same schedule from
+  the (B, H, F) layout) give the same costs bit for bit.
 """
 
 import ctypes
@@ -105,6 +110,7 @@ def host_libs():
         lib.vct_host_set_member_order.argtypes = [I]
         lib.vct_host_derivs.argtypes = [P] * 10 + [I, I]
         lib.vct_host_linesearch.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
+        lib.vct_host_linesearch_aos.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
         assert lib.vct_host_team() >= 4
         libs[name] = lib
@@ -283,6 +289,69 @@ def test_derivs_lane_matches_plain(kernel_lib, inputs):
         assert _lane_err(a, b).max().item() < DV_TOL
     block = got[1][:, :fam.N][:, :, [0, 1, 2, 3, 10]][..., [0, 1, 2, 3, 10]]
     assert (block != 0).float().mean() > 0.8  # the second-order block is live
+
+
+def _edges(inputs):
+    """``_active``'s inputs with lanes 2-5 at the edges of the closed forms
+    (every lane has the masked rows of stage 0, the terminal stage and, on
+    the cascade, the seam): lane 2 Ux (V) at max_speed; lane 3 ey at its
+    upper bound; lane 4 Ux, delta, ey and epsi at the ties of spatial_prime's
+    clamps; lane 5 delta at delta_max, and the PHR rows of delta_max and
+    w_max (the V floor on point-mass stages) at lam + mu c = 0 exactly."""
+    fam, X, U, lam, mu, curv, ds = _active(inputs)
+    X, U, lam = X.clone(), U.clone(), lam.clone()
+    cp = dict(zip(cuda_lib.PARAM_FIELDS, cuda_lib.family_params(fam).tolist()))
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    N = fam.N
+    X[2, :, 0] = cp["max_speed"]
+    X[3, :N, 5] = cp["ey_max"]
+    X[3, N:, 2] = cp["ey_max_pm"]
+    X[4, :N, 0], X[4, :N, 3], X[4, :N, 5], X[4, :N, 6] = 1.0, 1.0, 8.0, 1.3
+    X[5, :N, 3] = cp["delta_max"]
+    lam[5, :N, 1] = 0.0  # c = delta - delta_max = 0
+    U[5, :N, 1] = f32(cp["w_max"]) - 0.5
+    lam[5, :N, 4] = -(mu[5] * (U[5, :N, 1] - f32(cp["w_max"])))  # lam = -mu c
+    X[5, N:, 0] = f32(cp["V_min"]) + 1.0
+    lam[5, N:, 0] = -(mu[5] * (f32(cp["V_min"]) - X[5, N:, 0]))
+    return fam, X, U, lam, mu, curv, ds
+
+
+def test_derivs_lane_at_edges(kernel_lib, inputs):
+    fam, X, U, lam, mu, curv, ds = _edges(inputs)
+    got = host_derivs(kernel_lib, fam, X, U, lam, mu, curv, ds)
+    ref = derivs_plain(fam, X, U, lam, mu, curv, ds)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert _lane_err(a, b).max().item() < DV_TOL
+    assert _same_bits(got[1], got[1].transpose(-1, -2).contiguous())  # Hw symmetric
+
+
+@pytest.mark.parametrize("n_alpha", [6, 12])
+def test_linesearch_aos_blocks_match_lane(kernel_lib, inputs, n_alpha):
+    """Kernel 5's blocks (kernel 1's schedule with the (B, H, F) record
+    source, threads first to last and last to first) give kernel 1's
+    one-lane costs bit for bit."""
+    fam, X, U, lam, mu, _, curv, ds, z0 = inputs
+    H = fam.H
+    rng = np.random.default_rng(1)
+    kff = torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.02, dtype=torch.float32)
+    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, 10)) * 0.01, dtype=torch.float32)
+    args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    params = cuda_lib.family_params(fam)
+    al = np.asarray(ALILQRConfig(n_alpha=n_alpha).alphas(), np.float32)
+    lane = torch.full((n_alpha, B), float("nan"))
+    soas = [cuda_lib.soa(t) for t in args]
+    assert kernel_lib.vct_host_linesearch(params.ctypes.data, al.ctypes.data, n_alpha,
+                                          *[t.data_ptr() for t in soas], lane.data_ptr(), B, H,
+                                          0) == 0
+    assert torch.isposinf(lane[:, :2]).all() and torch.isfinite(lane[:, 2:]).any()
+    for mode in (1, 2):
+        out = torch.full((n_alpha, B), float("nan"))
+        rc = kernel_lib.vct_host_linesearch_aos(params.ctypes.data, al.ctypes.data, n_alpha,
+                                                *[t.contiguous().data_ptr() for t in args],
+                                                out.data_ptr(), B, H, mode)
+        assert rc == 0
+        assert _same_bits(out, lane)
 
 
 @pytest.mark.parametrize("n_alpha", [6, 12])

@@ -1,4 +1,4 @@
-// Host driver of kernels 1-4: their lane bodies built with a host C++
+// Host driver of kernels 1-5: their lane bodies built with a host C++
 // compiler, so their phases and teams run on the CPU.
 // - Kernels 2 and 3 (csrc/team.cuh, csrc/solve_fm.cu): each scenario's team
 //   is emulated in one thread: uniform code runs once, and each phase runs
@@ -6,10 +6,11 @@
 //   (vct_host_set_member_order(1)) last to first, on a shared area of
 //   TEAM_FLOATS floats.
 // - Kernel 4 (csrc/derivs_fm.cu): its lane over every (stage, scenario).
-// - Kernel 1 (csrc/rollout_fm.cu): each block through the kernel's own
-//   schedule (linesearch_block), every thread of a phase in turn, in
-//   either order; or one lane at a time (linesearch_lane, every stage's
-//   candidate_stage in order).
+// - Kernels 1 and 5 (csrc/rollout_fm.cu, csrc/rollout_aos.cu): each block
+//   through the kernels' own schedule (linesearch_block, linesearch.cuh)
+//   with the kernel's record source, every thread of a phase in turn, in
+//   either order; or, kernel 1, one lane at a time (linesearch_lane, every
+//   stage's candidate_stage in order).
 // Same arguments and layouts as the kernels' launchers, without the stream.
 //
 //     g++ -std=c++17 -O1 -shared -fPIC -I csrc -o libvct_host.so csrc/host_driver.cpp
@@ -18,11 +19,11 @@
 #include <vector>
 
 #include "derivs_fm.cu"
+#include "rollout_aos.cu"
 #include "rollout_fm.cu"
 #include "solve_fm.cu"
 
 extern "C" int vct_host_team() { return TEAM; }
-
 
 extern "C" int vct_host_solve_config_size() { return (int)sizeof(SolveConfig); }
 
@@ -101,6 +102,21 @@ struct HostBlock {
   void sync() {}
 };
 
+// every block of the line search with the record source src, threads in
+// either order
+template <class Records>
+static void host_blocks(const STParams& p, const float* alphas, int A, const Records& src,
+                        float* costs, int B, int H, bool last_first) {
+  Alphas al;
+  for (int i = 0; i < MAX_ALPHA; ++i) al.v[i] = i < A ? alphas[i] : 0.f;
+  const int C = ls_chunk(A);
+  std::vector<float> smem(ls_smem(A, C) / sizeof(float));
+  for (int b0 = 0; b0 < B; b0 += LS_SCEN) {
+    HostBlock blk{std::vector<LsThread>(2 * ls_warps(A) * 32), last_first};
+    linesearch_block(blk, p, al, A, C, src, smem.data(), costs, b0, B, H);
+  }
+}
+
 // kernel 1's costs (A, B): mode 0, linesearch_lane for each (step size,
 // scenario); 1 and 2, each block through linesearch_block, its threads
 // first to last (1) or last to first (2)
@@ -118,13 +134,21 @@ extern "C" int vct_host_linesearch(const float* params, const float* alphas, int
       for (int b = 0; b < B; ++b) linesearch_lane(b, B, H, alphas[a], in, costs + (size_t)a * B, p);
     return 0;
   }
-  Alphas al;
-  for (int i = 0; i < MAX_ALPHA; ++i) al.v[i] = i < A ? alphas[i] : 0.f;
-  const int C = ls_chunk(A);
-  std::vector<float> smem(ls_smem(A, C) / sizeof(float));
-  for (int b0 = 0; b0 < B; b0 += LS_SCEN) {
-    HostBlock blk{std::vector<LsThread>(2 * ls_warps(A) * 32), mode == 2};
-    linesearch_block(blk, p, al, A, C, in, smem.data(), costs, b0, B, H);
-  }
+  host_blocks(p, alphas, A, SoaRecords{in}, costs, B, H, mode == 2);
+  return 0;
+}
+
+// kernel 5's costs (A, B) from the (B, H, F) layout: each block through
+// linesearch_block, its threads first to last (mode 1) or last to first (2)
+extern "C" int vct_host_linesearch_aos(const float* params, const float* alphas, int A,
+                                       const float* xref, const float* uref, const float* kff,
+                                       const float* kfb, const float* lam, const float* mu,
+                                       const float* curv, const float* ds, const float* z0,
+                                       float* costs, int B, int H, int mode) {
+  if (A < 1 || A > MAX_ALPHA || B < 1 || H < 1 || mode < 1 || mode > 2) return 1;
+  STParams p;
+  memcpy(&p, params, sizeof(STParams));
+  host_blocks(p, alphas, A, AosRecords{LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}},
+              costs, B, H, mode == 2);
   return 0;
 }

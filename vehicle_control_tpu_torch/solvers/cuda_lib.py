@@ -173,6 +173,7 @@ SIGNATURES = {
     "vct_backward_fm_info": ([_I, _P], _I),
     "vct_derivs_fm_info": ([_I, _I, _P], _I),
     "vct_linesearch_fm_info": ([_I, _I, _P], _I),
+    "vct_linesearch_aos_info": ([_I, _I, _P], _I),
 }
 
 
@@ -202,7 +203,8 @@ LAUNCH_INFO = ("lead", "threads", "block", "registers", "stack_bytes", "static_s
                "smem_bytes_per_block", "blocks_per_sm", "warps_per_sm")
 LEADS = {"vct_solve_fm_info": "team", "vct_backward_fm_info": "team",
          "vct_derivs_fm_info": "threads_per_stage",
-         "vct_linesearch_fm_info": "scenarios_per_block"}
+         "vct_linesearch_fm_info": "scenarios_per_block",
+         "vct_linesearch_aos_info": "scenarios_per_block"}
 
 
 def launch_info(fn, *shape) -> dict:
