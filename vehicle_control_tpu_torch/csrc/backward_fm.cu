@@ -13,10 +13,11 @@
 // backward_plain.
 //
 // What bounds it on an H100: latency and instruction issue, not bytes.  A
-// single-track stage's derivatives are ~40k dependent f32 operations (the
-// 12-input gradient jet, the 8-column RK4 Jacobian jet, the 5x5
-// second-order jet), a point-mass stage's far fewer; only the Riccati step
-// (~3k FMAs) is a recursion.  The inputs and gains are ~5 MB.
+// single-track stage's derivatives (stage_derivs: the analytic RK4
+// Jacobian, one symmetric second-order jet pass, closed forms) are
+// thousands of dependent f32 operations, a point-mass stage's far fewer;
+// only the Riccati step (~3k FMAs) is a recursion.  The inputs and gains
+// are ~5 MB.
 //
 // Design: the same team sweep as kernel 3 (backward_sweep in team.cuh).
 // TEAM = 4 threads per scenario, blocks of 128 threads (135,808 bytes of

@@ -3,32 +3,29 @@
 //
 // Replaces the Pallas TPU kernel build_derivs_kernel_fm
 // (vehicle_control_tpu/solvers/derivs_kernel_fm.py).  For every (stage,
-// scenario): the AL-cost gradient g (NW), the unsymmetrized Hessian Hw
-// (NW x NW, Hw[r][c] = d2L/dw_r dw_c) and the dynamics Jacobian J (NZ x NW)
-// over w = (z, u), from stage_derivs in singletrack.cuh (the function kernel
-// 2 calls at every stage of its backward sweep), specialised for the kind
-// of the thread's stage.  Plain version: derivs_plain.
+// scenario): the AL-cost gradient g (NW), the Hessian Hw (NW x NW, Hw[r][c]
+// = d2L/dw_r dw_c, symmetric) and the dynamics Jacobian J (NZ x NW) over w =
+// (z, u), from stage_derivs in singletrack.cuh (the function kernels 2 and 3
+// call at every stage of their backward sweep), specialised for the kind of
+// the thread's stage.  Plain version: derivs_plain.
 //
 // What bounds it on an H100: stages are independent, so H x B threads run
 // at once.  Each writes (12 + 144 + 120) floats: B*H*276*4 bytes, 135.7 MB
-// at B=4096, H=30, or 40.5 us at 3.35 TB/s.  Each computes the three jets of
-// stage_derivs (the 12-input gradient, the 8-column RK4 Jacobian, the 5x5
-// second-order block): roughly 4e4 f32 operations, 4.9 GFLOP at B=4096,
-// H=30, or 73 us at 67 TFLOP/s.  The operations are the larger side there;
-// on the cascade (H=60, two thirds of it point-mass stages with a fraction
-// of the operations) the bytes are.  The kernel runs 14-21x its bound, at
-// 255 registers and a 3.3 KB stack (the jets and the outputs in local
-// memory), 8 warps an SM.
+// at B=4096, H=30, or 40.5 us at 3.35 TB/s.  The bound counts the plain
+// version's operations (about 36k a single-track stage, 4.4 GFLOP at
+// B=4096, H=30, or 66 us at 67 TFLOP/s): the operations are the larger side
+// on the single track, the bytes on the cascade (H=60, two thirds of it
+// point-mass stages with a fraction of the operations).
 // Design: one thread per (stage, scenario) on a grid (ceil(B/128), H), the
 // outputs in the struct-of-arrays layout (stage, field, scenario) so a warp
 // writes 32 consecutive floats; the wrapper permutes them to (B, H, ...).
-// Splitting a stage's derivatives over 2, 3 or 4 threads by jet direction
-// (a share of each jet's seeds, the second-order block as Jet<3,2> triples,
-// or whole jets a thread; register-resident, 168-255 registers, 12 warps
-// an SM at 4) was measured slower on the single track and no faster on the
-// cascade: each thread repeats the value chain, the triples cost ~1.5x the
-// 5x5 block's operations, and a register-resident thread was no faster per
-// operation, so the stack is not what binds it (PERF.md, kernel_ab.py).
+// stage_derivs does far fewer operations than the plain version's jets: the
+// RK4 Jacobian by its sparse analytic chain (rk4_jacobian), the Hessian's
+// nonquadratic 5x5 block by one symmetric second-order jet pass that also
+// gives those entries of the gradient, the rest of g and Hw in closed form
+// (PERF.md).  Splitting a stage's derivatives over 2, 3 or 4 threads by jet
+// direction was measured slower (PR 5: each thread repeats the value chain,
+// and a register-resident thread was no faster per operation).
 // The lane body is plain C++ (VCT_HD), so a host compiler builds it for
 // rehearsal (csrc/host_driver.cpp); the kernel and its launcher are CUDA
 // only.
@@ -43,7 +40,8 @@ using namespace vct;
 
 // kernel 4 at (stage n, scenario b).  Inputs x (H, NZ, B), u (H, NU, B),
 // lam (H, NC, B), mu (B), curv and ds (H, B); outputs g (H, NW, B),
-// hw (H, NW, NW, B) and jm (H, NZ, NW, B)
+// hw (H, NW, NW, B) (both triangles of the packed Hessian) and jm (H, NZ,
+// NW, B)
 VCT_HD void derivs_lane(int n, int b, int B, int H, const STParams& p, const float* x,
                         const float* u, const float* lam, const float* mu, const float* curv,
                         const float* ds, float* g_out, float* hw_out, float* jm_out) {

@@ -7,8 +7,10 @@
 // of a line-search candidate (kernels 1, 3 and 5) and the stage derivatives
 // (kernels 2-4; team.cuh holds the backward sweep of kernels 2 and 3).
 // Templates over the scalar type give values (float) and exact derivatives
-// (Jet).  The polynomial arctan is kept, as on every path of the JAX
-// package, so the numbers stay comparable; no atanf.
+// (Jet); the stage derivatives take most of theirs in closed form (the RK4
+// Jacobian by its analytic chain, the gradient and the Hessian outside one
+// second-order jet pass).  The polynomial arctan is kept, as on every path
+// of the JAX package, so the numbers stay comparable; no atanf.
 //
 // Stages are visited one static segment at a time, as the JAX kernels do
 // (fm_family.Seg): single track, the seam N-1, the switch N, the point-mass
@@ -859,9 +861,13 @@ VCT_HD void pm_cost_derivs(int n, int H, const float wf[NW], const float lam[NC]
 }
 
 // g (NW), the Hessian d2L/dw_r dw_c as its packed upper triangle Hs
-// (sym_w), the Jacobian Jm[r][c] at stage n of kind K
+// (sym_w), the Jacobian Jm[r][c] at stage n of kind K.  Inlined: called
+// through the ABI from the team kernels (2 and 3), this function made
+// kernel 2 fault with an illegal address on the card in the optimized
+// build only (-G builds and the host build, under AddressSanitizer too,
+// were right; ROADMAP "Faults found").
 template <int K>
-VCT_HD_NOINLINE void stage_derivs(int n, int H, const float wf[NW], const float lam[NC],
+VCT_HD void stage_derivs(int n, int H, const float wf[NW], const float lam[NC],
                                   float mu, float kv, float dsn, float dsp, float dss,
                                   const STParams& p, float g[NW], float Hs[NSYM],
                                   float Jm[NZ][NW]) {

@@ -30,7 +30,7 @@
 // scenario; teams of 4 beat it on both families (PERF.md, kernel_ab.py).
 // Within a team:
 // - the backward pass is stage-parallel: each member computes one stage's
-//   derivatives (stage_derivs, unchanged) into the team's shared chunk,
+//   derivatives (stage_derivs) into the team's shared chunk,
 //   then the team runs the chunk's Riccati steps in order, splitting each
 //   10-row product element by element, with the value function in shared
 //   memory (faster than leaving the steps to one member: PERF.md);

@@ -16,7 +16,8 @@
 //
 // The team's shared area holds
 // - a chunk: the derivatives of up to TEAM stages, one slot each: g (NW),
-//   the symmetrized Hessian's upper triangle (NW(NW+1)/2) and the
+//   the Hessian's packed upper triangle (NW(NW+1)/2, as stage_derivs
+//   gives it) and the
 //   Jacobian's live block, rows 0-7 x columns 0-7 and the two controls
 //   (8 x 10).  Rows 8 and 9 (stash_next = u) and columns 8 and 9 (the
 //   stash, which no dynamics reads) are constants, rebuilt by jm().  170
@@ -152,7 +153,12 @@ VCT_HD void derivs_to_slot(int n, int b, int B, int H, const float* X, const flo
 // the closed-form solve of Quu + rho I (not PD when a <= 0 or det <= 0),
 // the gains into kff and kfb, the value function update.  Each element of
 // each product is computed by one member, its sum in the order of a
-// one-thread loop, so how the elements are split changes no bit.
+// one-thread loop, so how the elements are split changes no bit.  The sums
+// keep the plain sweep's order (riccati_backward): a product's terms are
+// summed before the stage's g or H joins them, and the value function adds
+// K'Quu k, K'Qu and Qux'k (K'Quu K, K'Qux and Qux'K) as separate sums.  In
+// any other order the single-track gains at the solver's rho0 sat 1.5-3.6x
+// farther from f64 than the plain version's (tests/kernel2_rho0_study.py).
 VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B, float rho,
                          float* kff, float* kfb, float& dV1, float& dV2, bool& fail) {
   float* sh = tm.sh;
