@@ -7,9 +7,9 @@ nvcc flags (``VARIANTS``: teams of 8 and no FMA contraction for kernels 2
 and 3).  With ``--baseline [NAME=]DIR`` (repeatable) it also builds every
 kernel from the ``.cu`` files in DIR (for example an earlier commit's
 ``csrc/``, unpacked into an ignored folder), which must take the same C
-arguments; each build's stage-derivative functions are counted in its SASS
-(``sass_counts``: f32 and all instructions of ``stage_derivs`` and the RK4
-Jacobian, a static count).
+arguments; each build's kernels are counted in its SASS (``sass_counts``:
+f32 and all instructions of kernels 2-4, a static count over every stage
+kind's code).
 
 Then, for the single-track family and the cascade at ``chip_smoke.py``'s
 shapes and budgets, on the same warm-started inputs
@@ -42,7 +42,6 @@ and family, and a JSON line of all numbers (also written to FILE).
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import glob
 import json
@@ -115,32 +114,30 @@ def load(path, kernels):
 
 
 # the SASS opcodes counted as f32 operations (the FP32 pipe and the special
-# function unit), and the functions of the stage derivatives
+# function unit), and the kernels whose stage derivatives they count
 F32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET", "MUFU", "FCHK", "FRND",
            "FSWZADD")
-SASS_FUNCS = ("stage_derivs", "rk4_jacobian", "derivs_fm_kernel")
+SASS_KERNELS = ("derivs_fm_kernel", "backward_fm_kernel", "solve_fm_kernel")
 
 
 def sass_counts(lib_path):
-    """{function: {kind: (f32 instructions, all instructions)}}: a static
-    count over the SASS of the build's stage-derivative functions
-    (``cuobjdump -sass``), one entry per stage kind (its template argument);
-    empty without cuobjdump."""
+    """{kernel: "f32 instructions/all instructions"}: a static count over the
+    build's SASS (``cuobjdump -sass``; a kernel's non-inlined functions sit
+    in its own code) of kernels 2-4; empty without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True).stdout
-    counts = collections.defaultdict(dict)
+    counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        for key in SASS_FUNCS:
+        for key in SASS_KERNELS:
             if key in name:
-                kind = re.search(r"ILi(\d+)E", name)
                 ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
                                  block)
                 f32 = sum(1 for o in ops if o.split(".")[0] in F32_OPS)
-                counts[key][kind.group(1) if kind else "-"] = (f32, len(ops))
-    return {k: dict(v) for k, v in counts.items()}
+                counts[key] = f"{f32}/{len(ops)}"
+    return counts
 
 
 def modes(times):
@@ -200,7 +197,7 @@ def backward_gates(fam, w, rho0, libs, params, stream):
             if cond == "well":
                 err = max(chip_smoke.lane_errors(a[ok], b[ok]).max().item()
                           for a, b in zip(got, ref[:4]))
-                row.update(bw_well_max=err, bw_well_pass=flags and err <= chip_smoke.BW_TOL)
+                row.update(bw_well_max=err, bw_well_pass=bool(flags and err <= chip_smoke.BW_TOL))
                 continue
             ok = ok & chip_smoke.finite_lanes(ref64[:4])
             passed = flags
@@ -213,7 +210,7 @@ def backward_gates(fam, w, rho0, libs, params, stream):
                     row[f"bw_rho0_{key}"] = ",".join(
                         f"q{q:g}:{torch.quantile(ke, q).item():.2e}/"
                         f"{torch.quantile(pe, q).item():.2e}" for q in (*chip_smoke.QUANT_FACTOR, 1.0))
-            row["bw_rho0_pass"] = passed
+            row["bw_rho0_pass"] = bool(passed)
         rows[n] = row
     return rows
 
@@ -322,7 +319,7 @@ def run_family(label, env, libs, reps):
         got = (None, None, None, st[0], st[1], st[2] > 0.5, st[3].to(torch.int32),
                dict(first_alpha=st[4], inner_runs=st[5].to(torch.int32)))
         rows, passed = chip_smoke.solve_gates(got, first_ref, first_64)
-        well_rows[n].update(cold_gates_pass=passed, cold_conv=rows["conv"],
+        well_rows[n].update(cold_gates_pass=bool(passed), cold_conv=rows["conv"],
                             cold_flips_vs_f64=rows["flips_vs_f64"],
                             cold_cost_median_vs_f64=rows["cost_median_vs_f64"])
         calls[n]["solve"]()  # the main path's budget again, for the comparisons below
@@ -407,8 +404,7 @@ def main() -> int:
                                      "warps_per_sm")})
         chip_smoke.print_ptxas(path)
         builds[name]["sass"] = sass_counts(path)
-        chip_smoke.phase(f"sass:{name}", **{f"{f}_{k}": f"{c[0]}/{c[1]}" for f, kinds in
-                                            builds[name]["sass"].items() for k, c in kinds.items()})
+        chip_smoke.phase(f"sass:{name}", **builds[name]["sass"])
     env = chip_smoke.make_env(dev)
     families = {label: run_family(label, env, libs, args.reps) for label in chip_smoke.FAMILIES}
     line = json.dumps(dict(card=smi, reps=args.reps, builds=builds, families=families))

@@ -85,6 +85,18 @@ VCT_HD float val(const Jet<N, K>& x) { return x.v; }
 
 VCT_HD bool finite(float x) { return fabsf(x) <= FLT_MAX; }
 
+// a product rounded on its own, never fused into a neighbouring add (FMA
+// contraction): a jet's value is rounded as the plain version's, op by op,
+// so a PHR row's activity and a branch's side, which turn on values that sit
+// on a constraint's boundary at a solver's optimum, come out as there
+VCT_HD float mul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
 // NaN-propagating max/min of values (as torch.maximum / jnp.maximum)
 VCT_HD float vmax(float a, float b) { return (a != a || b != b) ? a + b : (a > b ? a : b); }
 VCT_HD float vmin(float a, float b) { return (a != a || b != b) ? a + b : (a < b ? a : b); }
@@ -148,7 +160,7 @@ VCT_HD Jet<N, K> operator-(float c, const Jet<N, K>& a) {
 template <int N, int K>
 VCT_HD Jet<N, K> operator*(const Jet<N, K>& a, const Jet<N, K>& b) {
   Jet<N, K> r;
-  r.v = a.v * b.v;
+  r.v = mul_rn(a.v, b.v);
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b.v + b.d[i] * a.v;
   if constexpr (K == 2)
     for (int i = 0, e = 0; i < N; ++i)
@@ -160,7 +172,7 @@ VCT_HD Jet<N, K> operator*(const Jet<N, K>& a, const Jet<N, K>& b) {
 template <int N, int K>
 VCT_HD Jet<N, K> operator*(const Jet<N, K>& a, float c) {
   Jet<N, K> r;
-  r.v = a.v * c;
+  r.v = mul_rn(a.v, c);
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
   if constexpr (K == 2)
     for (int i = 0; i < Jet<N, K>::NH; ++i) r.h[i] = a.h[i] * c;

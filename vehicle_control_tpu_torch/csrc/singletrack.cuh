@@ -23,6 +23,8 @@
 // index fastest, so neighbouring threads read neighbouring addresses.
 #pragma once
 
+#include <type_traits>
+
 #include "jet.cuh"
 
 namespace vct {
@@ -162,7 +164,8 @@ VCT_HD T Tan(const T& x) {
 
 // polynomial arctan r(z) = z P(z^2), |err| < 3.5e-11 in exact arithmetic;
 // on a jet, P, P' and P''/2 come from one Horner pass on values and are
-// chained in once (utils/math.py: arctan)
+// chained in once (utils/math.py: arctan), the value's products rounded on
+// their own (mul_rn)
 template <class T>
 VCT_HD T Arctan(const T& x) {
   const float C[13] = {
@@ -175,15 +178,17 @@ VCT_HD T Arctan(const T& x) {
   bool inv = val(ax) > 1.f;
   float s = val(x) >= 0.f ? 1.f : -1.f;
   T z = inv ? T(s / Max(ax, 1e-6f)) : x;
-  float zv = val(z), t = zv * zv;
+  constexpr bool jet = !std::is_same<T, float>::value;
+  float zv = val(z), t = jet ? mul_rn(zv, zv) : zv * zv;
   float p = C[12], p1 = 0.f, p2 = 0.f;
   for (int i = 11; i >= 0; --i) {
     p2 = p2 * t + p1;
     p1 = p1 * t + p;
-    p = p * t + C[i];
+    p = (jet ? mul_rn(p, t) : p * t) + C[i];
   }
   // r' = P + 2t P', r'' = 6z P' + 4z t P''
-  T r = chain(z, zv * p, p + 2.f * t * p1, zv * (6.f * p1 + 8.f * t * p2));
+  T r = chain(z, jet ? mul_rn(zv, p) : zv * p, p + 2.f * t * p1,
+              zv * (6.f * p1 + 8.f * t * p2));
   return inv ? T(s * HALF_PI - r) : r;
 }
 
@@ -723,9 +728,9 @@ VCT_HD T st_block(const T x[4], const T& Fx, const float lam[NC], float mu, cons
   return cost + pen / (2.f * mu);
 }
 
-// d/dx of a PHR row over 2 mu: max(0, lam + mu c) dc/dx; its curvature
-// along the row: mu active(lam + mu c)
-VCT_HD float phr_slope(float lam, float mu, float c) { return vmax(lam + mu * c, 0.f); }
+// lam + mu c rounded as the plain version does (mul_rn): a PHR row's
+// activity, active(lam + mu c), and its slope over 2 mu, max(0, lam + mu c)
+VCT_HD float phr_arg(float lam, float mu, float c) { return lam + mul_rn(mu, c); }
 
 // d/dey of the boundary cost: w_boundary dsn 2 (ey - bound) beyond a bound
 VCT_HD float boundary_slope(float ey, float dsn, float lo, float hi, const STParams& p) {
@@ -767,8 +772,9 @@ VCT_HD void st_cost_derivs(int n, const float wf[NW], const float lam[NC], float
   const int lrow[5] = {0, 1, 2, 4, 5};
   float slope[5], act[5];
   for (int j = 0; j < 5; ++j) {
-    slope[j] = phr_slope(lam[lrow[j]], mu, crow[j]);
-    act[j] = active(lam[lrow[j]] + mu * crow[j]);
+    const float x = phr_arg(lam[lrow[j]], mu, crow[j]);
+    slope[j] = vmax(x, 0.f);
+    act[j] = active(x);
   }
   const float keep = n == 0 ? 0.f : 1.f;
   g[0] -= slope[0] * keep;
@@ -810,15 +816,15 @@ VCT_HD void pm_cost_derivs(int n, int H, const float wf[NW], const float lam[NC]
   float blo = ey < p.ey_min_pm ? 1.f : 0.f, bhi = ey > p.ey_max_pm ? 1.f : 0.f;
   Hs[sym_w(2, 2)] = 2.f * p.w_boundary * dsn * (blo + bhi) + 2.f * p.w_dev_pm * dsn;
   // constraint rows: 0 the V floor (linear), 1 the engine power
-  const float c0 = p.V_min - V;
-  g[0] -= phr_slope(lam[0], mu, c0);
-  Hs[sym_w(0, 0)] += mu * active(lam[0] + mu * c0);
+  const float x0 = phr_arg(lam[0], mu, p.V_min - V);
+  g[0] -= vmax(x0, 0.f);
+  Hs[sym_w(0, 0)] += mu * active(x0);
   float Vm = vmax(V, 1.f);
-  const float c1 = (wf[NZ] * FS - p.Peng / Vm) * fs;
+  const float x1 = phr_arg(lam[1], mu, mul_rn(mul_rn(wf[NZ], FS) - p.Peng / Vm, fs));
   float liveV = (V > 1.f ? 1.f : 0.f) + (V == 1.f ? 0.5f : 0.f);  // max's tie rule
   float gV = fs * p.Peng / (Vm * Vm) * liveV;  // d c1 / dV; d c1 / du_Fx = 1
-  float lam_hat1 = phr_slope(lam[1], mu, c1);
-  float a1 = mu * active(lam[1] + mu * c1);
+  float lam_hat1 = vmax(x1, 0.f);
+  float a1 = mu * active(x1);
   g[0] += lam_hat1 * gV;
   g[NZ] += lam_hat1;
   Hs[sym_w(0, 0)] += a1 * gV * gV + lam_hat1 * (-2.f * fs * p.Peng / (Vm * Vm * Vm)) * liveV;
