@@ -14,8 +14,9 @@ from ``initial_states`` seed 0 with their aligned carries):
   mu0=300).
 
 For each family it holds kernels 1 (line search), 2 (backward pass), 4
-(stage derivatives), 5 (the line search in the array-of-structs layout)
-and 3 (the whole solve) against their plain PyTorch versions on the inputs
+(stage derivatives), 5 (the line search in the array-of-structs layout,
+also held to kernel 1's costs bit for bit) and 3 (the whole solve)
+against their plain PyTorch versions on the inputs
 of the solve after one closed-loop step whose solve is the plain whole
 solve (so no kernel computed them; kernel 3 at the full budget on that
 step's own cold first solve, both f32 versions against the plain version
