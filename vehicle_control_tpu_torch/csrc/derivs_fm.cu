@@ -24,8 +24,8 @@
 // nonquadratic 5x5 block by one symmetric second-order jet pass that also
 // gives those entries of the gradient, the rest of g and Hw in closed form
 // (PERF.md).  Splitting a stage's derivatives over 2, 3 or 4 threads by jet
-// direction was measured slower (PR 5: each thread repeats the value chain,
-// and a register-resident thread was no faster per operation).
+// direction was measured slower (PERF.md: each thread repeats the value
+// chain, and a register-resident thread was no faster per operation).
 // The lane body is plain C++ (VCT_HD), so a host compiler builds it for
 // rehearsal (csrc/host_driver.cpp); the kernel and its launcher are CUDA
 // only.
