@@ -42,8 +42,11 @@ prints no result.  Writes nothing outside ``build/``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import datetime
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -265,19 +268,66 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
-def as_accurate(what, kern_err, plain_err, floor):
-    """Raise unless the kernel's errors against f64 are, at each gated
-    quantile, within QUANT_FACTOR of the plain f32 version's plus floor;
-    return the quantiles (kernel/plain) as text."""
-    out = []
+def accuracy(what, kern_err, plain_err, floor):
+    """Whether the kernel's errors against f64 are, at each gated quantile,
+    within QUANT_FACTOR of the plain f32 version's plus floor: (the
+    quantiles kernel/plain as text, the first gate missed or None)."""
+    out, missed = [], None
     for q in (*QUANT_FACTOR, 0.999, 1.0):
         k, p = (torch.quantile(e, q).item() for e in (kern_err, plain_err))
         out.append(f"q{q:g}:{k:.2e}/{p:.2e}")
         factor = QUANT_FACTOR.get(q)
-        if factor is not None and not k <= factor * p + floor:
-            raise RuntimeError(f"{what}: kernel vs f64 at quantile {q} is {k:.3e}, "
-                               f"plain f32 vs f64 {p:.3e} (allowed {factor} x plain + {floor})")
-    return ",".join(out)
+        if missed is None and factor is not None and not k <= factor * p + floor:
+            missed = (f"{what}: kernel vs f64 at quantile {q} is {k:.3e}, plain f32 vs f64 "
+                      f"{p:.3e} (allowed {factor} x plain + {floor})")
+    return ",".join(out), missed
+
+
+def as_accurate(what, kern_err, plain_err, floor):
+    """``accuracy``'s text; raise if a gate was missed."""
+    text, missed = accuracy(what, kern_err, plain_err, floor)
+    if missed:
+        raise RuntimeError(missed)
+    return text
+
+
+def backward_gates(what, got, ref, ref64=None):
+    """Kernel 2's gates at one regularization.  ``got``: a build's (kff,
+    Kfb, dV1, dV2, fail); ``ref``: the plain f32 version's on the same
+    inputs; ``ref64``: the plain version's in f64 at the solver's rho0, None
+    at rho = RHO_WELL.  The fail flags and the lanes with non-finite gains
+    must be the same in both (a lane whose warm start diverged can overflow
+    its gains; such lanes are not compared); at RHO_WELL each output's lane
+    errors are held to BW_TOL, at rho0 their quantiles against f64 to the
+    plain f32 version's (``accuracy``, BW_FLOOR).  Returns (the rows, the
+    largest |got - ref| over the compared lanes, the first gate missed or
+    None)."""
+    missed = []
+    if not torch.equal(got[4], ref[4]):
+        missed.append(f"{what}: fail flags differ on {(got[4] != ref[4]).sum().item()} lanes")
+    ok_ref, ok_got = finite_lanes(ref[:4]), finite_lanes(got[:4])
+    if not torch.equal(ok_got, ok_ref):
+        missed.append(f"{what}: the lanes with non-finite gains differ")
+    ok = ok_ref & ok_got
+    ok64 = ok if ref64 is None else ok & finite_lanes(ref64[:4])
+    rows, abs_err = {}, 0.0
+    for i, key in enumerate(("kff", "Kfb", "dV1", "dV2")):
+        a, b = got[i], ref[i]
+        kp = lane_errors(a[ok], b[ok])
+        abs_err = max(abs_err, (a[ok] - b[ok]).abs().max().item())
+        rows[key] = f"max:{kp.max().item():.2e},median:{kp.median().item():.2e}"
+        if ref64 is None:
+            if not kp.max() <= BW_TOL:
+                missed.append(f"{what}: {key} error {kp.max():.3e}")
+            continue
+        c = ref64[i][ok64]
+        text, miss = accuracy(f"{what} {key}", lane_errors(a[ok64], c), lane_errors(b[ok64], c),
+                              BW_FLOOR)
+        rows[key] += ",vs_f64:" + text
+        missed += [miss] if miss else []
+    rows["fail_lanes"] = int(got[4].sum())
+    rows["nonfinite_lanes"] = int((~ok_ref).sum())
+    return rows, abs_err, (missed[0] if missed else None)
 
 
 def solve_numbers(got, ref):
@@ -453,6 +503,63 @@ def count_ops(fn):
     with Counter() as counter:
         fn()
     return counter.ops
+
+
+def start_count_build():
+    """Start g++ on the host build of the kernels' lane bodies whose floats
+    count their arithmetic (``csrc/op_count.h``); returns (the library's
+    path, the compiler's process or None where the build exists)."""
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+
+    path, args = cuda_lib.host_library(("-DVCT_COUNT_OPS",))
+    if os.path.exists(path):
+        return path, None
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the bounds of kernels 2-4 count their code's "
+                           "operations in a host build")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path, subprocess.Popen([cxx, *args, "-o", f"{path}.{os.getpid()}"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def load_count_build(path, proc):
+    """The counting host build that ``start_count_build`` started, loaded."""
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n{out[-4000:]}")
+        os.replace(proc.args[-1], path)
+    lib = ctypes.CDLL(path)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.vct_host_derivs.argtypes = [P] * 10 + [I, I]
+    lib.vct_host_backward.argtypes = [P] + [P] * 11 + [I, I]
+    lib.vct_host_ops.restype = ctypes.c_double
+    return lib
+
+
+def code_op_counts(lib, fam, dv_args, bw_args):
+    """Per lane: the f32 operations that the code of kernel 4 (the stage
+    derivatives) and of kernel 2 (the derivatives and the team's Riccati
+    sweep) does on these inputs, their lane bodies run by the counting host
+    build ``lib`` on CPU copies (one per +, -, *, /, negation and math
+    function; comparisons and selects free)."""
+    from vehicle_control_tpu_torch.solvers import cuda_lib
+
+    H, NZ, NU = fam.H, fam.NZ, fam.NU
+    NW, L = NZ + NU, dv_args[0].shape[0]
+    params = cuda_lib.family_params(fam)
+    dv = [cuda_lib.soa(t.cpu()) for t in dv_args] + [
+        torch.empty(s) for s in ((H, NW, L), (H, NW, NW, L), (H, NZ, NW, L))]
+    bw = [cuda_lib.soa(t.cpu()) for t in bw_args] + [
+        torch.empty(s) for s in ((H, NU, L), (H, NU, NZ, L), (2, L), (L,))]
+    counts = []
+    for fn, ts in ((lib.vct_host_derivs, dv), (lib.vct_host_backward, bw)):
+        lib.vct_host_ops()
+        if fn(params.ctypes.data, *[t.data_ptr() for t in ts], L, H):
+            raise RuntimeError("the counting host build refused its inputs")
+        counts.append(lib.vct_host_ops() / L)
+    return counts
 
 
 def nbytes(*tensors):
@@ -663,32 +770,12 @@ def run_family(label, env):
             if kern is aos_kernel:
                 row += ",kernel1_bits:same"
             ls_rows[f"{'k1' if kern is ls_kernel else 'k5'}_{cond}"] = row
-        if not torch.equal(got[4], ref[4]):
-            raise RuntimeError(f"kernel 2 ({cond}): fail flags differ on "
-                               f"{(got[4] != ref[4]).sum().item()} lanes")
-        # a lane whose warm start diverged can overflow its gains (flagged
-        # not PD); such lanes must be the same in both, and are not compared
-        ok = finite_lanes(ref[:4])
-        if not torch.equal(finite_lanes(got[:4]), ok):
-            raise RuntimeError(f"kernel 2 ({cond}): the lanes with non-finite gains differ")
-        if cond == "rho0":
-            ref64 = backward_plain(fam, *(t.double() for t in bw_args))
-            ok64 = ok & finite_lanes(ref64[:4])
-        for key, a, b in zip(("kff", "Kfb", "dV1", "dV2"), got[:4], ref[:4]):
-            kp = lane_errors(a[ok], b[ok])
-            row = f"max:{kp.max().item():.2e},median:{kp.median().item():.2e}"
-            if cond == "well":
-                bw_abs = max(bw_abs, (a[ok] - b[ok]).abs().max().item())
-                if not kp.max() <= BW_TOL:
-                    raise RuntimeError(f"kernel 2 (rho={rho_v}): {key} error {kp.max():.3e}")
-            else:
-                c = ref64[("kff", "Kfb", "dV1", "dV2").index(key)][ok64]
-                row += ",vs_f64:" + as_accurate(f"kernel 2 (rho={rho_v}) {key}",
-                                                lane_errors(a[ok64], c), lane_errors(b[ok64], c),
-                                                BW_FLOOR)
-            bw_rows[f"{key}_{cond}"] = row
-        bw_rows[f"fail_lanes_{cond}"] = int(got[4].sum())
-        bw_rows[f"nonfinite_lanes_{cond}"] = int((~ok).sum())
+        ref64 = backward_plain(fam, *(t.double() for t in bw_args)) if cond == "rho0" else None
+        rows, err, missed = backward_gates(f"kernel 2 (rho={rho_v})", got, ref, ref64)
+        if missed:
+            raise RuntimeError(missed)
+        bw_abs = err if cond == "well" else bw_abs
+        bw_rows.update({f"{key}_{cond}": v for key, v in rows.items()})
     phase(f"{label}:kernel1_kernel5_vs_plain", **shape, A=len(alphas), rho_well=RHO_WELL,
           rho_solver=cfg.rho0, k1_max_abs_err_well=f"{ls_abs:.3e}",
           k5_max_abs_err_well=f"{aos_abs:.3e}", **ls_rows)
@@ -883,36 +970,49 @@ def run_family(label, env):
           **{f"{k}_plain_ms": f"{v:.3f}" for k, v in plain_ms.items()})
 
     # each kernel's bound: its bytes (inputs read once, outputs written
-    # once) and its operations, counted on the plain version's arithmetic
-    # over OP_COUNT_LANES lanes and scaled to B; kernel 3's by the inner
-    # iterations each lane of the timed inputs ran
+    # once) and its operations over OP_COUNT_LANES lanes, scaled to B:
+    # kernel 1's (and 5's) on the plain version's arithmetic; kernels 4 and
+    # 2's on their own code (``code_op_counts``: their stage derivatives do
+    # about a third of the plain version's jet operations); kernel 3's from
+    # those by the inner iterations each lane of the timed inputs ran.  The
+    # bounds from the plain version's counts alone (the earlier yardstick)
+    # are printed beside them.
     lanes = OP_COUNT_LANES
     sub = lambda ts: tuple(t[:lanes] for t in ts)  # noqa: E731
     ops_cand = count_ops(lambda: linesearch_costs_plain(fam, alphas[:1], *sub(ls_args))) / lanes
-    ops_bw = count_ops(lambda: backward_plain(fam, *sub(bw_args))) / lanes
-    ops_dv = count_ops(lambda: derivs_plain(fam, *sub(dv_args))) / lanes
+    plain_bw = count_ops(lambda: backward_plain(fam, *sub(bw_args))) / lanes
+    plain_dv = count_ops(lambda: derivs_plain(fam, *sub(dv_args))) / lanes
+    ops_dv, ops_bw = code_op_counts(env["count_lib"], fam, sub(dv_args), sub(bw_args))
     A = len(alphas)
     # per lane: each inner iteration a backward pass, A candidates and a
     # re-roll (as one candidate); per solve a warm rollout, one AL cost sweep
     # per inner loop, one multiplier update per outer iteration and the
     # finalize sweep (one candidate each)
     sweeps = 1 + (cfg.n_outer + 1) + cfg.n_outer + 1
-    ops_sv = runs.double().sum().item() * (ops_bw + (A + 1) * ops_cand) + B * sweeps * ops_cand
     f4, NZ, NU, NC = 4, fam.NZ, fam.NU, fam.NC  # bytes of an f32, the widths
     NW = NZ + NU
-    bounds = {  # outputs: costs (A, B); kff, Kfb, dV (2, B), fail (B);
-        # g, Hw, J; X, U, lam and the SOLVE_STATS rows
-        "ls": bound(nbytes(*ls_args) + A * B * f4, A * B * ops_cand),
-        "bw": bound(nbytes(*bw_args) + B * f4 * (H * (NU + NU * NZ) + 3), B * ops_bw),
-        "dv": bound(nbytes(*dv_args) + B * H * f4 * NW * (1 + NW + NZ), B * ops_dv),
-        "sv": bound(nbytes(*first_args) + B * f4 * (H * (NZ + NU + NC) + cuda_lib.SOLVE_STATS),
-                    ops_sv),
-    }
-    bounds["aos"] = bounds["ls"]
+
+    def bounds_of(o_bw, o_dv):  # outputs: costs (A, B); kff, Kfb, dV (2, B),
+        # fail (B); g, Hw, J; X, U, lam and the SOLVE_STATS rows
+        o_sv = runs.double().sum().item() * (o_bw + (A + 1) * ops_cand) + B * sweeps * ops_cand
+        out = {
+            "ls": bound(nbytes(*ls_args) + A * B * f4, A * B * ops_cand),
+            "bw": bound(nbytes(*bw_args) + B * f4 * (H * (NU + NU * NZ) + 3), B * o_bw),
+            "dv": bound(nbytes(*dv_args) + B * H * f4 * NW * (1 + NW + NZ), B * o_dv),
+            "sv": bound(nbytes(*first_args) + B * f4 * (H * (NZ + NU + NC) + cuda_lib.SOLVE_STATS),
+                        o_sv),
+        }
+        out["aos"] = out["ls"]
+        return out
+
+    bounds, plain_bounds = bounds_of(ops_bw, ops_dv), bounds_of(plain_bw, plain_dv)
     phase(f"{label}:bounds", ops_per_candidate_lane=f"{ops_cand:.0f}",
           ops_per_backward_lane=f"{ops_bw:.0f}", ops_per_derivs_lane=f"{ops_dv:.0f}",
-          solve_inner_runs=int(runs.sum()),
-          **{f"{k}_bound_ms": f"{v[0]:.4f}({v[1]})" for k, v in bounds.items()})
+          plain_ops_per_backward_lane=f"{plain_bw:.0f}",
+          plain_ops_per_derivs_lane=f"{plain_dv:.0f}", solve_inner_runs=int(runs.sum()),
+          **{f"{k}_bound_ms": f"{v[0]:.4f}({v[1]})" for k, v in bounds.items()},
+          **{f"{k}_plain_ops_bound_ms": f"{plain_bounds[k][0]:.4f}({plain_bounds[k][1]})"
+             for k in ("bw", "dv", "sv")})
     counts = dict(ls=sum(launches.get(k, 0) for k in {ls_kernel, ls_kernel_d}),
                   bw=launches.get(bw_kernel, 0), dv=launches.get(dv_kernel, 0),
                   sv=launches[solve_kernel], aos=0)
@@ -979,6 +1079,7 @@ def main() -> int:
     # 2. build, each kernel's registers and stack, and the launch shape of
     # the team kernels (2 and 3) at B with their residency per SM
     t0 = time.perf_counter()
+    count_build = start_count_build()  # g++, beside nvcc
     lib_path = cuda_lib.build_library()
     lib = cuda_lib.load_library()
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}", library=lib_path.split("/")[-1])
@@ -988,6 +1089,7 @@ def main() -> int:
     for key, info in launch.items():
         phase(f"launch:{'backward_fm' if key == 'bw' else 'solve_fm'}", B=B, **info)
     env = make_env(dev)
+    env["count_lib"] = load_count_build(*count_build)
     results = {}
     for label in FAMILIES:
         results[label] = run_family(label, env)

@@ -165,11 +165,9 @@ def max_diff(a, b):
 
 
 def backward_gates(fam, w, rho0, libs, params, stream):
-    """{build: row}: each build's kernel 2 under chip_smoke.py's gates, at
-    rho = RHO_WELL against the plain f32 version (BW_TOL, flags identical)
-    and at the solver's rho0 against the plain version in f64 (each
-    output's lane-error quantiles, the plain f32 version's beside, held to
-    QUANT_FACTOR: ``chip_smoke.as_accurate``)."""
+    """{build: row}: each build's kernel 2 under chip_smoke.py's gates
+    (``chip_smoke.backward_gates``) at rho = RHO_WELL and at the solver's
+    rho0, its rows and whether it passed each."""
     from vehicle_control_tpu_torch.solvers import cuda_lib
     from vehicle_control_tpu_torch.solvers.backward_kernel_fm import backward_plain
 
@@ -178,8 +176,8 @@ def backward_gates(fam, w, rho0, libs, params, stream):
     base = (w["X"], w["U"], w["lam"], w["mu"])
     rhos = dict(well=torch.full((B,), chip_smoke.RHO_WELL, **f32), rho0=rho0)
     refs = {c: backward_plain(fam, *base, r, w["curv"], w["ds"]) for c, r in rhos.items()}
-    ref64 = backward_plain(fam, *(t.double() for t in base + (rho0, w["curv"], w["ds"])))
-    keys = ("kff", "Kfb", "dV1", "dV2")
+    refs64 = dict(well=None, rho0=backward_plain(
+        fam, *(t.double() for t in base + (rho0, w["curv"], w["ds"]))))
     rows = {}
     for n, (lib, kernels) in libs.items():
         if "backward" not in kernels:
@@ -190,27 +188,12 @@ def backward_gates(fam, w, rho0, libs, params, stream):
             out = [torch.empty(s, **f32) for s in ((H, NU, B), (H, NU, NZ, B), (2, B), (B,))]
             ccall(lib, "vct_backward_fm", params.ctypes.data, *ptrs(ins + out), B, H, stream)
             torch.cuda.synchronize()
-            got = (out[0].movedim(-1, 0), out[1].movedim(-1, 0), out[2][0], out[2][1])
-            ref = refs[cond]
-            ok = chip_smoke.finite_lanes(ref[:4]) & chip_smoke.finite_lanes(got)
-            flags = torch.equal(out[3] > 0.5, ref[4])
-            if cond == "well":
-                err = max(chip_smoke.lane_errors(a[ok], b[ok]).max().item()
-                          for a, b in zip(got, ref[:4]))
-                row.update(bw_well_max=err, bw_well_pass=bool(flags and err <= chip_smoke.BW_TOL))
-                continue
-            ok = ok & chip_smoke.finite_lanes(ref64[:4])
-            passed = flags
-            for key, a, b, c in zip(keys, got, ref[:4], ref64[:4]):
-                ke, pe = (chip_smoke.lane_errors(t[ok], c[ok]) for t in (a, b))
-                try:
-                    row[f"bw_rho0_{key}"] = chip_smoke.as_accurate(key, ke, pe, chip_smoke.BW_FLOOR)
-                except RuntimeError:
-                    passed = False
-                    row[f"bw_rho0_{key}"] = ",".join(
-                        f"q{q:g}:{torch.quantile(ke, q).item():.2e}/"
-                        f"{torch.quantile(pe, q).item():.2e}" for q in (*chip_smoke.QUANT_FACTOR, 1.0))
-            row["bw_rho0_pass"] = bool(passed)
+            got = (out[0].movedim(-1, 0), out[1].movedim(-1, 0), out[2][0], out[2][1],
+                   out[3] > 0.5)
+            gate_rows, _, missed = chip_smoke.backward_gates(
+                f"{n} kernel 2 ({cond})", got, refs[cond], refs64[cond])
+            row.update({f"bw_{cond}_{k}": v for k, v in gate_rows.items()})
+            row[f"bw_{cond}_pass"] = missed is None
         rows[n] = row
     return rows
 

@@ -40,6 +40,7 @@ from vehicle_control_tpu_torch.parallel.batch import (  # noqa: E402
     make_batched_racing_step,
 )
 from vehicle_control_tpu_torch.solvers.al_ilqr import rollout  # noqa: E402
+from vehicle_control_tpu_torch.solvers import cuda_lib  # noqa: E402
 from vehicle_control_tpu_torch.solvers.backward_kernel_fm import backward_plain  # noqa: E402
 from vehicle_control_tpu_torch.solvers.riccati import riccati_from_derivs  # noqa: E402
 from vehicle_control_tpu_torch.solvers.solve_kernel_fm import solve_plain  # noqa: E402
@@ -73,9 +74,7 @@ def check_inputs(label, lanes):
 
 def host_lib(flags):
     """The host build of the lane bodies with these extra g++ flags."""
-    import test_torch_host_kernels as hk
-
-    path, cmd = hk._library(flags)
+    path, cmd = cuda_lib.host_library(flags)
     if not os.path.exists(path):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         subprocess.run([shutil.which("g++"), *cmd, "-o", path], check=True)

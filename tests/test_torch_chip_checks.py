@@ -9,7 +9,8 @@ the inputs one ulp apart), and at most ``WITNESS_SHARE`` of a
 gate's lanes may be decided so.  Kernels 1 and 5: +inf on a rollout in one
 f32 version only; kernel 3 check (i): a lane beyond SOLVE_TOL.  And check
 (ii)'s gates on the whole solve, both f32 versions against f64
-(``solve_gates``).
+(``solve_gates``), and kernel 2's gates (``backward_gates``, which
+``kernel_ab.py`` shares).
 """
 
 import math
@@ -187,6 +188,61 @@ def test_solve_gates_kernel_beyond_plain_fails():
     kern, plain, f64 = _solves()
     kern[6][:2000] = 3  # iterations 6 away on half the lanes
     assert not chip_smoke.solve_gates(kern, plain, f64)[1]
+
+
+def _gains(n=64, seed=0):
+    """Kernel 2's (kff, Kfb, dV1, dV2, fail) on n lanes, H=3, and an f64 copy."""
+    g = torch.Generator().manual_seed(seed)
+    out = (torch.randn(n, 3, 2, generator=g), torch.randn(n, 3, 2, 10, generator=g),
+           torch.randn(n, generator=g), torch.randn(n, generator=g),
+           torch.zeros(n, dtype=torch.bool))
+    return out, tuple(t.double() if t.is_floating_point() else t for t in out)
+
+
+def _perturbed(gains, lane=None, value=None, scale=0.0):
+    """A copy of gains, each float entry off by scale of its lane's largest
+    magnitude, with kff[lane, 0, 0] = value if lane is given."""
+    out = [t.clone() for t in gains]
+    for t in out[:4]:
+        t += scale * (1.0 + t.abs().reshape(t.shape[0], -1).amax(-1)).reshape(
+            (-1,) + (1,) * (t.dim() - 1))
+    if lane is not None:
+        out[0][lane, 0, 0] = value
+    return tuple(out)
+
+
+@pytest.mark.parametrize("case, missed", [
+    ("same", False), ("within_tol", False), ("beyond_tol", True),
+    ("kernel_nan_lane", True), ("plain_nan_lane", True), ("both_nan_lane", False),
+    ("fail_flag", True),
+])
+def test_backward_gates_at_rho_well(case, missed):
+    """Kernel 2's gates at rho = RHO_WELL: within BW_TOL of each lane's
+    largest magnitude, the same fail flags and the same non-finite lanes
+    (either way round); a lane non-finite in both is not compared."""
+    ref, _ = _gains()
+    got = dict(same=ref, within_tol=_perturbed(ref, scale=0.5 * chip_smoke.BW_TOL),
+               beyond_tol=_perturbed(ref, scale=2.0 * chip_smoke.BW_TOL),
+               kernel_nan_lane=_perturbed(ref, 5, math.nan), plain_nan_lane=ref,
+               both_nan_lane=_perturbed(ref, 5, math.nan), fail_flag=ref)[case]
+    if case in ("plain_nan_lane", "both_nan_lane"):
+        ref = _perturbed(ref, 5, math.nan)
+    if case == "fail_flag":
+        got = got[:4] + (got[4].clone().index_fill_(0, torch.tensor([3]), True),)
+    rows, _, miss = chip_smoke.backward_gates("k2", got, ref)
+    assert (miss is not None) == missed, miss
+    assert rows["nonfinite_lanes"] == int(case in ("plain_nan_lane", "both_nan_lane"))
+
+
+@pytest.mark.parametrize("factor, missed", [(1.0, False), (3.0, False), (20.0, True)])
+def test_backward_gates_at_rho0_against_f64(factor, missed):
+    """At the solver's rho0 each output's lane errors against f64 are held,
+    quantile by quantile, to QUANT_FACTOR x the plain f32 version's."""
+    ref, ref64 = _gains(seed=1)
+    plain = _perturbed(ref, scale=1e-3)
+    got = _perturbed(ref, scale=factor * 1e-3)
+    _, _, miss = chip_smoke.backward_gates("k2", got, plain, ref64)
+    assert (miss is not None) == missed, miss
 
 
 def test_scripts_import_no_jax():

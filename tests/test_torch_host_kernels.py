@@ -7,8 +7,9 @@ solve), ``csrc/derivs_fm.cu`` (kernel 4, the stage derivatives),
 line search from staged stage records) with g++ into ``build/host/``; each
 scenario's team of TEAM members is emulated in one thread, phase by phase,
 and the line search's blocks (its schedule, ``linesearch_block``) phase by
-phase.  Two builds, compiled side by side: the kernels' team of 4,
-and teams of 8.  The test decides whether g++ exists when it runs, and skips
+phase.  Three builds, compiled side by side: the kernels' team of 4, teams
+of 8, and the team of 4 whose floats count their arithmetic
+(``csrc/op_count.h``, for chip_smoke.py's bounds).  The test decides whether g++ exists when it runs, and skips
 without it.
 
 Inputs: bench-like drops (``initial_states``, seed 0) with their aligned
@@ -34,12 +35,13 @@ beyond the state guard and from a NaN.  Tolerances (those of
   either order) give the one-lane rollouts' costs (linesearch_lane, within
   LS_RTOL of the plain version) bit for bit, with step sizes that fit the
   warps of a block and with more; kernel 5's blocks (the same schedule from
-  the (B, H, F) layout) give the same costs bit for bit.
+  the (B, H, F) layout) give the same costs bit for bit;
+- the counting build: kernels 4 and 2's outputs bit for bit, and at most
+  half the operations that chip_smoke.count_ops counts on the plain
+  versions' jets.
 """
 
 import ctypes
-import glob
-import hashlib
 import os
 import shutil
 import subprocess
@@ -49,6 +51,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vehicle_control_tpu_torch.controllers.mpc import problems
 from vehicle_control_tpu_torch.environment.track import Track
 from vehicle_control_tpu_torch.parallel.batch import aligned_carry, initial_states
@@ -64,25 +67,16 @@ B = 8
 HORIZONS = {"none": dict(horizon=6), "pm": dict(horizon=4, horizon_pm=5)}
 BW_TOL, SOLVE_TOL, DV_TOL, LS_RTOL = 1e-3, 1e-4, 1e-4, 1e-4
 BUILDS = {"team4": (), "team8": ("-DVCT_TEAM=8",)}
+COUNT_FLAGS = ("-DVCT_COUNT_OPS",)  # the build that counts its f32 operations
 WELL = ALILQRConfig(n_outer=1, n_inner=1, n_polish=0, n_alpha=6, mu0=300.0, rho0=1.0)
 BUDGET = dict(n_outer=2, n_inner=3, n_polish=1, n_alpha=6, mu0=300.0)
 
 
-def _library(flags):
-    """(the library's path for these sources and flags, the g++ command that builds it)."""
-    sources = sorted(glob.glob(os.path.join(cuda_lib.CSRC, "*")))
-    digest = hashlib.sha256(" ".join(flags).encode())
-    for path in sources:
-        with open(path, "rb") as fh:
-            digest.update(os.path.basename(path).encode() + fh.read())
-    lib = os.path.join(project_root(), "build", "host", f"libvct_host_{digest.hexdigest()[:16]}.so")
-    return lib, ["-std=c++17", "-O1", "-shared", "-fPIC", *flags, "-I", cuda_lib.CSRC,
-                 os.path.join(cuda_lib.CSRC, "host_driver.cpp")]
-
-
 def _build_all(cxx):
-    """{build: library path}: the builds that are missing compile side by side."""
-    libs = {name: _library(flags) for name, flags in BUILDS.items()}
+    """{build: library path}: the builds that are missing compile side by side
+    (BUILDS and "count")."""
+    libs = {name: cuda_lib.host_library(flags)
+            for name, flags in dict(BUILDS, count=COUNT_FLAGS).items()}
     out_dir = os.path.dirname(next(iter(libs.values()))[0])
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -113,6 +107,8 @@ def host_libs():
         lib.vct_host_linesearch_aos.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
         assert lib.vct_host_team() >= 4
+        if name == "count":
+            lib.vct_host_ops.restype = ctypes.c_double
         libs[name] = lib
     return libs
 
@@ -383,3 +379,25 @@ def test_linesearch_staged_matches_lane(kernel_lib, inputs, n_alpha):
     assert torch.isposinf(costs[1][:, :2]).all()
     fin = torch.isfinite(ref)
     assert ((costs[1][fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1.0)).max() < LS_RTOL
+
+
+def test_counting_build_same_bits_fewer_ops(host_libs, inputs):
+    """The host build whose floats count their arithmetic (``csrc/op_count.h``,
+    the bounds of kernels 2-4 in chip_smoke.py) gives kernels 4 and 2's
+    outputs bit for bit, and counts at most half the operations that
+    ``chip_smoke.count_ops`` counts on the plain versions' jets."""
+    fam, X, U, lam, mu, curv, ds = _active(inputs)
+    rho = inputs[5]
+    count, lib = host_libs["count"], host_libs["team4"]
+    for a, b in zip(host_derivs(count, fam, X, U, lam, mu, curv, ds),
+                    host_derivs(lib, fam, X, U, lam, mu, curv, ds)):
+        assert _same_bits(a, b)
+    for a, b in zip(host_backward(count, fam, X, U, lam, mu, rho, curv, ds),
+                    host_backward(lib, fam, X, U, lam, mu, rho, curv, ds)):
+        assert _same_bits(a, b)
+    dv_args, bw_args = (X, U, lam, mu, curv, ds), (X, U, lam, mu, rho, curv, ds)
+    ops_dv, ops_bw = chip_smoke.code_op_counts(count, fam, dv_args, bw_args)
+    plain_dv = chip_smoke.count_ops(lambda: derivs_plain(fam, *dv_args)) / B
+    plain_bw = chip_smoke.count_ops(lambda: backward_plain(fam, *bw_args)) / B
+    assert 0 < ops_dv < 0.5 * plain_dv
+    assert ops_dv < ops_bw < plain_bw

@@ -11,11 +11,11 @@
 //
 // What bounds it on an H100: stages are independent, so H x B threads run
 // at once.  Each writes (12 + 144 + 120) floats: B*H*276*4 bytes, 135.7 MB
-// at B=4096, H=30, or 40.5 us at 3.35 TB/s.  The bound counts the plain
-// version's operations (about 36k a single-track stage, 4.4 GFLOP at
-// B=4096, H=30, or 66 us at 67 TFLOP/s): the operations are the larger side
-// on the single track, the bytes on the cascade (H=60, two thirds of it
-// point-mass stages with a fraction of the operations).
+// at B=4096, H=30, or 40.5 us at 3.35 TB/s.  This code does about 12k f32
+// operations a single-track stage (counted by its host build with
+// csrc/op_count.h; the plain version's jets about 36k), 1.5 GFLOP at
+// B=4096, H=30, or 22 us at 67 TFLOP/s: the bytes bind, on the cascade
+// (H=60, two thirds of it point-mass stages) too.
 // Design: one thread per (stage, scenario) on a grid (ceil(B/128), H), the
 // outputs in the struct-of-arrays layout (stage, field, scenario) so a warp
 // writes 32 consecutive floats; the wrapper permutes them to (B, H, ...).

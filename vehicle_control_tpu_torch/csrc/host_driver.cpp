@@ -16,6 +16,9 @@
 //     g++ -std=c++17 -O1 -shared -fPIC -I csrc -o libvct_host.so csrc/host_driver.cpp
 //
 // tests/test_torch_host_kernels.py builds and loads it.
+#if defined(VCT_COUNT_OPS)
+#include "op_count.h"
+#endif
 #include <vector>
 
 #include "derivs_fm.cu"
@@ -152,3 +155,12 @@ extern "C" int vct_host_linesearch_aos(const float* params, const float* alphas,
               costs, B, H, mode == 2);
   return 0;
 }
+
+#if defined(VCT_COUNT_OPS)
+// the f32 operations of the calls since the last read (op_count.h)
+extern "C" double vct_host_ops() {
+  const double n = vct_count::ops;
+  vct_count::ops = 0.0;
+  return n;
+}
+#endif

@@ -15,10 +15,10 @@
 //
 // What bounds it on an H100: latency and instruction issue, not bytes.  Per
 // scenario the inner iterations are a serial chain; each is a backward pass
-// (a single-track stage's derivatives are ~40k dependent f32 operations,
-// the Riccati step ~3k) plus A closed-loop rollouts and a re-roll (~1.5k
-// operations a single-track stage).  The bytes are ~14 MB of inputs and
-// outputs for ~1 ms of work at the f32 peak.
+// (a single-track stage's derivatives are ~12k dependent f32 operations,
+// as csrc/op_count.h counts them, the Riccati step ~3k) plus A closed-loop
+// rollouts and a re-roll (~2k operations a single-track stage).  The bytes
+// are ~14 MB of inputs and outputs for ~0.9 ms of work at the f32 peak.
 //
 // The design spreads each scenario over a team (team.cuh): TEAM = 4
 // threads, eight scenarios to a warp, blocks of 128 threads (32 scenarios)

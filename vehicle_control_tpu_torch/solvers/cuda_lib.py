@@ -153,6 +153,21 @@ def build_library(sources=None, flags=NVCC_FLAGS) -> str:
     return lib
 
 
+def host_library(flags=()) -> tuple:
+    """(path, g++ arguments but the output) of the host build of the kernels'
+    lane bodies (``csrc/host_driver.cpp``, plain C++) for these g++ flags:
+    ``build/host/`` under a name that carries the hash of ``csrc/`` and the
+    flags.  With ``-DVCT_COUNT_OPS`` it counts its f32 operations
+    (``csrc/op_count.h``)."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + fh.read())
+    lib = os.path.join(project_root(), "build", "host", f"libvct_host_{digest.hexdigest()[:16]}.so")
+    return lib, ["-std=c++17", "-O1", "-shared", "-fPIC", *flags, "-I", CSRC,
+                 os.path.join(CSRC, "host_driver.cpp")]
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the library's C interface: name -> (argument types, result type)
 SIGNATURES = {
