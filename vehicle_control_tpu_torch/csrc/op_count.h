@@ -6,9 +6,10 @@
 // One operation each: +, -, *, / and unary minus of floats and a math
 // function (sqrtf, expf, ...), as chip_smoke.count_ops counts one per output
 // element of an elementwise op.  Comparisons, selects, copies and integer
-// work are free, so the count is at most what the code does.  The arithmetic is float's, op by op, so the
-// outputs are the plain host build's bit for bit.  Expressions in double
-// (the tire constants) stay double and are not counted.
+// work are free, so the count is at most what the code does.  The
+// arithmetic is float's, op by op, so the outputs are the plain host
+// build's bit for bit.  Expressions in double (the tire constants) stay
+// double and are not counted.
 #pragma once
 
 #include <float.h>
@@ -17,22 +18,20 @@
 #include <string.h>
 
 #include <type_traits>
-#include <utility>
 #include <vector>
 
 namespace vct_count {
 
 inline double ops = 0.0;
 
-constexpr void tick(double n = 1.0) {
-  if (!__builtin_is_constant_evaluated()) ops += n;
+constexpr void tick() {
+  if (!__builtin_is_constant_evaluated()) ops += 1.0;
 }
 
 struct F {
   float x;
   F() = default;
   constexpr F(float v) : x(v) {}
-  explicit constexpr operator float() const { return x; }
   explicit constexpr operator double() const { return x; }
   explicit constexpr operator int() const { return (int)x; }
 };
@@ -75,7 +74,6 @@ VCT_COUNT_COMPARE(!=)
 #undef VCT_COUNT_COMPARE
 
 constexpr F operator-(F a) { return tick(), F(-a.x); }
-constexpr F operator+(F a) { return a; }
 
 // the sources' select of two values of one type, here of an F and a float
 inline F Where(bool c, F a, F b) { return c ? a : b; }
