@@ -11,7 +11,8 @@ arguments; each build's kernels are counted in its SASS (``sass_counts``:
 f32 and all instructions of kernels 2-4, a static count over every stage
 kind's code).
 
-Then, for the single-track family and the cascade at ``chip_smoke.py``'s
+Then, for the families of ``chip_smoke.py`` (``--families``: the
+single-track family, the cascade and the cascade with obstacles) at its
 shapes and budgets, on the same warm-started inputs
 (``chip_smoke.warm_inputs``, computed by no kernel), it times one launch of
 each build's kernels with CUDA events: 3 (the whole solve, the main path's
@@ -33,7 +34,7 @@ rho0 = 1) and check (ii) (the main path's budget on the cold first solve
 against f64, ``solve_gates``).
 
     python3 kernel_ab.py [--baseline [NAME=]DIR ...] [--variants team8,team4_no_fma]
-                         [--reps 10] [--out FILE]
+                         [--families singletrack,cascaded] [--reps 10] [--out FILE]
 
 Prints the card's ``nvidia-smi`` name and power limit, one line per build
 and family, and a JSON line of all numbers (also written to FILE).
@@ -354,6 +355,9 @@ def main() -> int:
                          "(repeatable; NAME defaults to 'baseline')")
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help=f"comma-separated builds of {sorted(VARIANTS)}, or '' for none")
+    ap.add_argument("--families", default=",".join(chip_smoke.FAMILIES),
+                    help="comma-separated families of chip_smoke.FAMILIES (a baseline built "
+                         "before a family existed computes another problem there)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", help="also write the JSON line to this file")
     args = ap.parse_args()
@@ -389,7 +393,8 @@ def main() -> int:
         builds[name]["sass"] = sass_counts(path)
         chip_smoke.phase(f"sass:{name}", **builds[name]["sass"])
     env = chip_smoke.make_env(dev)
-    families = {label: run_family(label, env, libs, args.reps) for label in chip_smoke.FAMILIES}
+    families = {label: run_family(label, env, libs, args.reps)
+                for label in args.families.split(",") if label}
     line = json.dumps(dict(card=smi, reps=args.reps, builds=builds, families=families))
     print(line)
     if args.out:

@@ -269,14 +269,16 @@ def test_problem_setup_matches_jax():
 
 
 def test_unported_families_raise():
-    """The kinematic tail and the obstacle barrier are not ported yet; a
-    cascade with M = 0 is the single-track family."""
+    """The kinematic tail is not ported yet; the "pm" and "none" families
+    build with the obstacle barrier (tests/test_torch_obstacles.py holds it
+    against JAX's); a cascade with M = 0 is the single-track family."""
     car, tt = load_config(config_path(CAR)), tracks()[1]
-    with pytest.raises(NotImplementedError, match="next slices"):
+    with pytest.raises(NotImplementedError, match="next slice"):
         tproblems.build_cascaded_problem(car, tt, cascaded_cfg(N, M), "kc", device="cpu")
-    with pytest.raises(NotImplementedError, match="obstacle barrier"):
-        tproblems.build_cascaded_problem(car, tt, dict(cascaded_cfg(N, M), obstacles=True), "pm",
-                                         device="cpu")
+    for tail in ("pm", "none"):
+        prob = tproblems.build_cascaded_problem(car, tt, dict(cascaded_cfg(N, M), obstacles=True),
+                                                tail, device="cpu")
+        assert prob.family.tail == tail and len(prob.family.obstacles) == len(tt.obstacles) == 7
     fam = build_cascaded_family(car, cascaded_cfg(N, 0), "pm")
     assert (fam.tail, fam.H, fam.N) == ("none", N, N)
 

@@ -7,10 +7,13 @@ the kernel (for +inf: the kernel's verdict on the same f32 inputs, or
 verdicts as accurate against f64's as the plain f32 version's on copies of
 the inputs one ulp apart), and at most ``WITNESS_SHARE`` of a
 gate's lanes may be decided so.  Kernels 1 and 5: +inf on a rollout in one
-f32 version only; kernel 3 check (i): a lane beyond SOLVE_TOL.  And check
-(ii)'s gates on the whole solve, both f32 versions against f64
+f32 version only; kernel 3 check (i): a lane beyond SOLVE_TOL
+(``lane_witness``); on the obstacle cascade also a cost beyond LS_RTOL and a
+lane that kernels 2 or 4 decide on a knife edge (``f64_copies_side``).  And
+check (ii)'s gates on the whole solve, both f32 versions against f64
 (``solve_gates``), and kernel 2's gates (``backward_gates``, which
-``kernel_ab.py`` shares).
+``kernel_ab.py`` shares), and the obstacle lap's sides (``disc_passes``) and
+its violation gate (``obstacle_violation_gate``).
 """
 
 import math
@@ -119,11 +122,18 @@ def _solve_errors(n=4096):
     return err, torch.full_like(err, 1e-5), torch.full_like(err, 1e-5)
 
 
+def _solve_witness(err, kern64, plain64):
+    """Check (i)'s witness as ``run_family`` calls it on the obstacle-free
+    families."""
+    return chip_smoke.lane_witness("k3", ~(err <= chip_smoke.SOLVE_TOL), kern64, plain64,
+                                   chip_smoke.LS_FLOOR, err=err)
+
+
 def test_solve_witness_sides_with_kernel():
     err, kern64, plain64 = _solve_errors()
     err[858] = 1.5e-4  # beyond SOLVE_TOL against the plain f32 version
     kern64[858], plain64[858] = 2e-4, 1e-4  # within 4x of the plain version's error
-    out = chip_smoke.solve_witness("k3", err, kern64, plain64)
+    out = _solve_witness(err, kern64, plain64)
     assert out.startswith("1|858:err=0.00015")
 
 
@@ -132,10 +142,10 @@ def test_solve_witness_sides_with_plain_fails():
     err[858] = 1.5e-4
     kern64[858], plain64[858] = 1e-2, 1e-5  # the kernel far from f64, the plain version close
     with pytest.raises(RuntimeError, match="sides with the plain version"):
-        chip_smoke.solve_witness("k3", err, kern64, plain64)
+        _solve_witness(err, kern64, plain64)
     err[858] = float("nan")  # a NaN error is disputed, not passed
     with pytest.raises(RuntimeError, match="sides with the plain version"):
-        chip_smoke.solve_witness("k3", err, kern64, plain64)
+        _solve_witness(err, kern64, plain64)
 
 
 def test_solve_witness_cap():
@@ -143,9 +153,9 @@ def test_solve_witness_cap():
     n = int(chip_smoke.WITNESS_SHARE * err.numel()) + 1
     err[:n] = 1.5e-4
     with pytest.raises(RuntimeError, match=f"{n} of {err.numel()} lanes decided"):
-        chip_smoke.solve_witness("k3", err, kern64, plain64)
+        _solve_witness(err, kern64, plain64)
     err[0] = 1e-6
-    assert chip_smoke.solve_witness("k3", err, kern64, plain64).startswith(f"{n - 1}|")
+    assert _solve_witness(err, kern64, plain64).startswith(f"{n - 1}|")
 
 
 def _solve(conv, cost, iters):
@@ -257,3 +267,104 @@ def test_scripts_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_disc_passes():
+    """The obstacle lap's sides and least distances: "left" where the car
+    is above a disc's ey at its nearest state."""
+    s = torch.linspace(0.0, 60.0, 121).double().numpy()
+    states = torch.zeros(121, 8, dtype=torch.float64).numpy()
+    states[:, 4] = s
+    states[:, 5] = [2.5 if abs(v - 30.0) < 5 else (-2.0 if abs(v - 50.0) < 5 else 0.0) for v in s]
+    (side0, d0), (side1, d1) = chip_smoke.disc_passes(states, ((30.0, 0.0, 1.0), (50.0, 0.5, 2.0)))
+    assert (side0, side1) == ("left", "right")
+    assert d0 == pytest.approx(2.5) and d1 == pytest.approx(2.5)
+
+
+@pytest.mark.parametrize("kern_f64,missed", [(3e-4, False), (1e-2, True)])
+def test_cost_witness_beyond_rtol(kern_f64, missed):
+    """On the obstacle cascade a rollout beyond LS_RTOL of the plain f32
+    version passes only where the kernel is, against f64, as accurate as
+    the plain f32 version; the other families keep the direct gate."""
+    kern, plain, f64 = _costs()
+    f64[:, 100] = 1.5
+    plain[:, 100] = 1.5 * (1 + 1e-4)
+    kern[:, 100] = 1.5 * (1 + kern_f64)
+
+    def rtol_witness(kern, share):
+        fin = torch.isfinite(kern) & torch.isfinite(plain)
+        rel = torch.zeros(kern.shape, dtype=torch.float64)
+        rel[fin] = chip_smoke.cost_errors(kern[fin], plain[fin])
+        return chip_smoke.lane_witness(
+            "k1", fin & ~(rel <= chip_smoke.LS_RTOL), chip_smoke.cost_errors(kern, f64),
+            chip_smoke.cost_errors(plain, f64), chip_smoke.LS_FLOOR, share, err=rel)
+
+    share = chip_smoke.FAMILY_SHARES["cascaded_obstacles"]["rtol"]
+    if missed:
+        with pytest.raises(RuntimeError, match="sides with the plain"):
+            rtol_witness(kern, share)
+    else:
+        assert rtol_witness(kern, share).startswith("6|")
+    with pytest.raises(RuntimeError, match="sides with the plain" if missed else "at most 0.0"):
+        rtol_witness(kern, 0.0)  # a direct gate: no rollout beyond LS_RTOL
+    assert rtol_witness(plain, 0.0) == "0"
+
+
+def _rounded(phase):
+    """A version of y = 1e3 x whose f32 result carries a rounding-like error
+    of 1e-3 that turns on the input's last bits (none in f64); ``phase``
+    picks the realization."""
+    def fn(x):
+        noise = 1e-3 * torch.sin(1e7 * x.double() + phase) if x.dtype == torch.float32 else 0.0
+        return ((1e3 * x.double() + noise).to(x.dtype),)
+    return fn
+
+
+def _lane_errors(a, b):
+    return (a[0].double() - b[0].double()).abs().amax(-1)
+
+
+@pytest.mark.parametrize("kernel_bias,missed", [
+    (0.0, False),  # another realization of the same rounding: as accurate on copies
+    (2e-2, True),  # a kernel off by 20x the rounding on every copy is wrong
+])
+def test_knife_edge_witness(kernel_bias, missed):
+    """A lane that f64 on its own inputs gives to the plain version passes
+    only where, on its inputs and copies of them one ulp apart, the kernel's
+    mean error against f64 is within 4x the plain f32 version's
+    (``copies_side``)."""
+    x = torch.linspace(1.0, 2.0, 4096).reshape(1024, 4).contiguous()
+    kernel = lambda x: (_rounded(1.0)(x)[0] + kernel_bias,)  # noqa: E731
+    plain = _rounded(0.0)
+    ref, ref64, got = plain(x), plain(x.double()), kernel(x)
+    kern64, plain64 = _lane_errors(got, ref64), _lane_errors(ref, ref64)
+    plain64[7] = 1e-9  # the plain version on the lane's own inputs happens to be exact
+    disputed = torch.zeros(1024, dtype=torch.bool)
+    disputed[7] = True
+    edge = lambda lanes: chip_smoke.copies_side(lanes, kernel, plain, _lane_errors, (x,),  # noqa
+                                                chip_smoke.LS_FLOOR)
+    args = (disputed, kern64, plain64, chip_smoke.LS_FLOOR,
+            chip_smoke.FAMILY_SHARES["cascaded_obstacles"]["solve"], edge)
+    if missed:
+        with pytest.raises(RuntimeError, match="sides with the plain"):
+            chip_smoke.lane_witness("k3", *args)
+    else:
+        assert chip_smoke.lane_witness("k3", *args).endswith(",copies=1")
+
+
+@pytest.mark.parametrize("viols,missed", [
+    ({174: (0.1465, 0.14, 0.139)}, False),  # f64 leaves the state as violated
+    ({174: (0.1465, 0.04, 0.001)}, False),  # the plain f32 solve too
+    ({174: (0.1465, 0.002, 0.001)}, True),  # only the kernel: a fault
+])
+def test_obstacle_violation_gate(viols, missed):
+    """The obstacle lap's largest violation beyond LAP_VIOL_MAX passes only
+    where, at that step, kernel 3's violation is at most 4x the plain
+    solve's in f32 or f64 on the same inputs, plus LAP_VIOL_MAX."""
+    chip_smoke.obstacle_violation_gate(dict(max_violation=0.005), {})
+    lap = dict(max_violation=0.1465)
+    if missed:
+        with pytest.raises(RuntimeError, match="max violation"):
+            chip_smoke.obstacle_violation_gate(lap, viols)
+    else:
+        chip_smoke.obstacle_violation_gate(lap, viols)

@@ -15,7 +15,10 @@ without it.
 Inputs: bench-like drops (``initial_states``, seed 0) with their aligned
 warm starts, rolled out under perturbed controls, with random multipliers,
 made in float64 and handed to both versions in float32, at B=8 on the
-single-track family (H=6) and the cascade (N=4 + M=5).  Lanes 0 and 1 start
+single-track family (H=6), the cascade (N=4 + M=5) and the cascade with
+ippodromo's obstacles (the barrier's table is a run-time parameter, so the
+same builds run it), whose drops sit 2-15 m before a disc, within 1.5 m of
+its ey, so the horizons run past and into the discs.  Lanes 0 and 1 start
 beyond the state guard and from a NaN.  Tolerances (those of
 ``chip_smoke.py``: float32 rounding in another order):
 - kernel 2 at rho = 1: gains and dV within BW_TOL of each lane's largest
@@ -106,6 +109,7 @@ def host_libs():
         lib.vct_host_linesearch.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         lib.vct_host_linesearch_aos.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
+        assert lib.vct_host_param_count() == len(cuda_lib.PARAM_FIELDS)  # the table's too
         assert lib.vct_host_team() >= 4
         if name == "count":
             lib.vct_host_ops.restype = ctypes.c_double
@@ -160,18 +164,23 @@ def _config(rel):
     return load_config(f"{project_root()}/configs/{rel}")
 
 
-@pytest.fixture(scope="module", params=["none", "pm"])
+@pytest.fixture(scope="module", params=["none", "pm", "pm_obstacles"])
 def inputs(request):
     """(family, X, U, lam, mu, rho, curv, ds, z0) in float32 on the CPU."""
-    tail = request.param
+    tail, _, obstacles = request.param.partition("_")
     name = "singletrack.yaml" if tail == "none" else "cascaded.yaml"
-    cfg = dict(_config(f"controllers/{name}"), obstacles=False, **HORIZONS[tail])
+    cfg = dict(_config(f"controllers/{name}"), obstacles=bool(obstacles), **HORIZONS[tail])
     track = Track(_config("environment/ippodromo.yaml"))
     prob = problems.build_cascaded_problem(_config("models/dynamic_car.yaml"), track, cfg, tail,
                                            torch.float64, "cpu")
     H = prob.family.H
     rng = np.random.default_rng(0)
-    states = torch.as_tensor(initial_states(track.length, B, rng))
+    states = initial_states(track.length, B, rng)
+    if obstacles:  # 2-15 m before a disc, within 1.5 m of its ey
+        disc = track.data.obstacles.numpy()[np.arange(B) % len(track.obstacles)]
+        states[:, 4] = disc[:, 2] - rng.uniform(2.0, 15.0, B)
+        states[:, 5] = disc[:, 3] + rng.uniform(-1.5, 1.5, B)
+    states = torch.as_tensor(states)
     carry = aligned_carry(prob, states)
     params, z0 = prob.init_horizon(states, carry.X_pred, carry.U_pred)
     U = carry.U_pred + torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.05)
@@ -197,14 +206,24 @@ def _same_bits(a, b):
     return torch.equal(a, b)
 
 
+def _finite_lanes(ts):
+    return torch.stack([torch.isfinite(t.reshape(B, -1)).all(-1) for t in ts]).all(0)
+
+
 def test_backward_team_matches_plain(host_lib, inputs):
+    """The gains where the plain version's are finite, the same lanes
+    finite (a lane where the Riccati step is not PD, as where the horizon
+    runs into an obstacle's barrier, carries non-finite gains in both)."""
     fam, X, U, lam, mu, rho, curv, ds = inputs[:8]
     got = host_backward(host_lib, fam, X, U, lam, mu, rho, curv, ds)
     ref = backward_plain(fam, X, U, lam, mu, rho, curv, ds)
     assert torch.equal(got[4], ref[4])
+    ok = _finite_lanes(ref[:4])
+    assert torch.equal(_finite_lanes(got[:4]), ok)
+    assert ok.float().mean() > 0.5
     for name, a, b in zip(("kff", "Kfb", "dV1", "dV2"), got[:4], ref[:4]):
         assert a.shape == b.shape, name
-        assert _lane_err(a, b).max().item() < BW_TOL, name
+        assert _lane_err(a[ok], b[ok]).max().item() < BW_TOL, name
 
 
 def test_backward_team_matches_plain_live_block(host_lib, inputs):
@@ -214,7 +233,7 @@ def test_backward_team_matches_plain_live_block(host_lib, inputs):
     got = host_backward(host_lib, fam, X, U, lam, mu, rho, curv, ds)
     ref = backward_plain(fam, X, U, lam, mu, rho, curv, ds)
     assert torch.equal(got[4], ref[4])
-    ok = torch.stack([torch.isfinite(t.reshape(B, -1)).all(-1) for t in ref[:4]]).all(0)
+    ok = _finite_lanes(ref[:4])
     assert ok.float().mean() > 0.5
     for name, a, b in zip(("kff", "Kfb", "dV1", "dV2"), got[:4], ref[:4]):
         assert _lane_err(a[ok], b[ok]).max().item() < BW_TOL, name
@@ -285,6 +304,11 @@ def test_derivs_lane_matches_plain(kernel_lib, inputs):
         assert _lane_err(a, b).max().item() < DV_TOL
     block = got[1][:, :fam.N][:, :, [0, 1, 2, 3, 10]][..., [0, 1, 2, 3, 10]]
     assert (block != 0).float().mean() > 0.8  # the second-order block is live
+    if fam.obstacles:  # the barrier's s gradient and (s, s) entry, the only terms on s
+        N = fam.N
+        g_s = torch.cat([got[0][:, :N, 4], got[0][:, N:, 1]], 1)
+        h_ss = torch.cat([got[1][:, :N, 4, 4], got[1][:, N:, 1, 1]], 1)
+        assert ((g_s != 0) & (h_ss != 0)).float().mean() > 0.5
 
 
 def _edges(inputs):

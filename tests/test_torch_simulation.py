@@ -250,12 +250,16 @@ def test_summarize_matches_jax(capsys):
 
 
 def test_unported_options_raise():
+    """The kinematic controllers and the render adapters raise; obstacles
+    reach the controller's problem (tests/test_torch_obstacles.py runs them)."""
     car, track_cfg = _car_track(load_config)
     for sc in (_simconfig(["cascaded_kinematic"], {"cascaded_kinematic": {}}),
-               _simconfig(["kinematic"], {"kinematic": {}}),
-               _simconfig(["cascaded"], {"cascaded": {}}, obstacles=True)):
+               _simconfig(["kinematic"], {"kinematic": {}})):
         with pytest.raises(NotImplementedError):
             RacingSimulator(ConfigDict(sc), car, track_cfg, device="cpu")
+    obs = RacingSimulator(ConfigDict(_simconfig(["cascaded"], {"cascaded": {}}, obstacles=True)),
+                          car, track_cfg, device="cpu")
+    assert len(obs.entries["cascaded"].problem.family.obstacles) == 7
     sim = RacingSimulator(ConfigDict(_simconfig(["cascaded"], save_images=True)), car,
                           track_cfg, device="cpu")
     with pytest.raises(NotImplementedError):

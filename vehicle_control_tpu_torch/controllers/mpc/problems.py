@@ -4,8 +4,10 @@
 callbacks for the AL-iLQR solver.  The port covers ``tail="none"``, the
 single-track family (``configs/controllers/singletrack.yaml``), and
 ``tail="pm"``, the paper's cascade of N single-track stages and M
-point-mass stages (``configs/controllers/cascaded.yaml``); the kinematic
-tail and obstacles raise ``NotImplementedError``.
+point-mass stages (``configs/controllers/cascaded.yaml``), both with or
+without the obstacle barrier (``cfg["obstacles"]``: a cost term over the
+track's discs, ``_obstacle_barrier``); the kinematic tail raises
+``NotImplementedError``.
 
 The callbacks are the family's field-wise closures (solvers.fm_family)
 applied to batch-first tensors: the solver state is z = [x(8), u_prev(2)]
@@ -24,7 +26,12 @@ import torch
 
 from vehicle_control_tpu_torch.environment import track as track_mod
 from vehicle_control_tpu_torch.solvers.al_ilqr import OCPFunctions
-from vehicle_control_tpu_torch.solvers.fm_family import FMFamily, build_cascaded_family
+from vehicle_control_tpu_torch.solvers.fm_family import (  # noqa: F401  OBSTACLE_EPS: JAX's name
+    OBSTACLE_EPS,
+    FMFamily,
+    _obstacles_std,
+    build_cascaded_family,
+)
 from vehicle_control_tpu_torch.utils.device import DEFAULT_DEVICE, require_device
 
 FORCE_SCALE = 1000.0  # solve forces in kN
@@ -53,6 +60,15 @@ class MPCProblem(NamedTuple):
     family: FMFamily
 
 
+def _obstacle_barrier(obstacles, s, ey, ds, w):
+    """sum_i w ds / max(dist_i - (r_i + 0.1), OBSTACLE_EPS) over the discs
+    of ``obstacles`` ((n_obs, 5): cx, cy, s, ey, radius), dist_i the (s,
+    ey)-plane distance to disc i's centre: the barrier that the family's
+    stage costs add (``fm_family._obstacles_std``, which this calls)."""
+    rows = tuple((o[2], o[3], o[4]) for o in torch.as_tensor(obstacles).tolist())
+    return _obstacles_std(rows, torch.as_tensor(s), torch.as_tensor(ey), torch.as_tensor(ds), w)
+
+
 def _fields(z, u):
     return tuple(z.unbind(-1)) + tuple(u.unbind(-1))
 
@@ -67,7 +83,7 @@ def build_cascaded_problem(
     The card is the default; without CUDA that raises, and the caller asks
     for ``device="cpu"`` (where the kernels' plain versions run)."""
     device = require_device(device)
-    family = build_cascaded_family(car_config, cfg, tail)  # raises past "none"/"pm"
+    family = build_cascaded_family(car_config, cfg, tail, track.data)  # raises past "none"/"pm"
     track_data = track.data.to(device=device, dtype=dtype)
     p = family.params
     H, N = family.H, family.N

@@ -30,6 +30,9 @@ extern "C" int vct_host_team() { return TEAM; }
 
 extern "C" int vct_host_solve_config_size() { return (int)sizeof(SolveConfig); }
 
+// STParams' floats (the obstacle table's included), as vct_param_count
+extern "C" int vct_host_param_count() { return (int)(sizeof(STParams) / sizeof(float)); }
+
 extern "C" void vct_host_set_member_order(int last_first) { host_member_order = last_first; }
 
 extern "C" int vct_host_backward(const float* params, const float* x, const float* u,

@@ -29,6 +29,7 @@ using namespace vct;
 
 #if defined(__CUDACC__)
 
+// STParams' floats (cuda_lib.PARAM_FIELDS: the obstacle table's included)
 extern "C" int vct_param_count() { return (int)(sizeof(STParams) / sizeof(float)); }
 
 extern "C" const char* vct_error_string(int err) {

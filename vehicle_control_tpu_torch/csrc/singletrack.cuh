@@ -39,6 +39,8 @@ constexpr float DSS = 1000.f;  // drive/brake split tanh scale
 constexpr float FLOOR = 0.3f;  // softplus floor on s_dot
 constexpr float BETA = 10.f;
 constexpr float HALF_PI = 1.57079632679489661923f;
+constexpr int MAX_OBS = 16;           // discs of the obstacle table (cuda_lib.MAX_OBS)
+constexpr float OBSTACLE_EPS = 1e-2f;  // the floor of the barrier's denominator
 
 // Car parameters, cost weights and bounds of the family, every field a
 // float; the order is cuda_lib.PARAM_FIELDS.  Passed to the kernels by value.
@@ -52,6 +54,10 @@ struct STParams {
   float w_dev_pm, w_Fy, w_switch_F, V_min, ey_min_pm, ey_max_pm, u1_lo_pm, u1_hi_pm;
   float N;   // single-track stages (H for tail="none")
   float pm;  // 1 for tail="pm", 0 for tail="none"
+  // the obstacle barrier: n_obs discs of the table in use (0: none), the
+  // weight, and each disc's (s, ey, R = r + 0.1)
+  float n_obs, w_obs;
+  float obs[MAX_OBS][3];
 };
 
 // -- the horizon's static segments (fm_family.Seg) --------------------------------
@@ -414,8 +420,25 @@ VCT_HD T phr(const T& c, float lam, float mu) {
 // (fm_family._active)
 VCT_HD float active(float x) { return x > 0.f ? 1.f : (x == 0.f ? 0.25f : 0.f); }
 
+// The obstacle barrier at (s, ey) (fm_family._obstacles_std): over the
+// discs in table order, w dsn / max(dist - R, OBSTACLE_EPS), R = r + 0.1.
+// The squares are rounded on their own (mul_rn), so dist rounds as the
+// plain version's and the floor decides alike.  Every lane reads the same
+// table, so the loop does not diverge a warp.
+VCT_HD float obstacle_barrier(float s, float ey, float dsn, const STParams& p) {
+  float acc = 0.f;
+  const int n_obs = (int)p.n_obs;
+  for (int i = 0; i < n_obs; ++i) {
+    const float a = s - p.obs[i][0], b = ey - p.obs[i][1];
+    const float dist = sqrtf(mul_rn(a, a) + mul_rn(b, b));
+    acc = acc + (p.w_obs * dsn) / vmax(dist - p.obs[i][2], OBSTACLE_EPS);
+  }
+  return acc;
+}
+
 // the family's raw stage cost (no penalty) at stage n of H; dss is the arc
-// step of the seam stage N-1, which the switching cost reads
+// step of the seam stage N-1, which the switching cost reads; with
+// obstacles the barrier on (s, ey) after the running cost
 template <int K, class T>
 VCT_HD T stage_cost(int n, int H, const T wf[NW], float dsn, float dsp, float dss,
                     const STParams& p) {
@@ -428,6 +451,7 @@ VCT_HD T stage_cost(int n, int H, const T wf[NW], float dsn, float dsp, float ds
     cost = cost + p.w_w * (wact * wact);
     cost = cost + slip_penalty(x, Fx, p);
     if (n >= 1) cost = cost + (p.w_Fx / dsp) * sq(Fx - wf[8] * FS);  // Fx slew
+    if (p.n_obs > 0.f) cost = cost + obstacle_barrier(x[4], ey, dsn, p);
     if constexpr (K == K_ST_TERM) cost = cost + terminal(x[0], x[5], x[6], x[7], p);
     return cost;
   } else {
@@ -436,10 +460,11 @@ VCT_HD T stage_cost(int n, int H, const T wf[NW], float dsn, float dsp, float ds
     const T& ey = wf[2];
     T cost = boundary(ey, dsn, p.ey_min_pm, p.ey_max_pm, p);
     cost = cost + p.w_dev_pm * dsn * (ey * ey);
+    if constexpr (K != K_SWITCH)  // Fx/Fy slew
+      cost = cost + ((p.w_Fx / dsp) * sq(Fx - Fx_prev) + (p.w_Fy / dsp) * sq(Fy - wf[9] * FS));
+    if (p.n_obs > 0.f) cost = cost + obstacle_barrier(wf[1], ey, dsn, p);
     if constexpr (K == K_SWITCH)  // switching cost against the seam's stash z[5]
       cost = cost + (p.w_switch_F / dss) * (sq(Fx - Fx_prev) + sq(Fy - wf[5]));
-    else  // Fx/Fy slew
-      cost = cost + ((p.w_Fx / dsp) * sq(Fx - Fx_prev) + (p.w_Fy / dsp) * sq(Fy - wf[9] * FS));
     if (K == K_TERM || n == H - 1) cost = cost + terminal(wf[0], wf[2], wf[3], wf[4], p);
     return cost;
   }
@@ -747,11 +772,47 @@ VCT_HD void terminal_slope(float speed, float ey, float epsi, const int at[4], c
   g[at[3]] += p.w_time;
 }
 
+// The obstacle barrier's gradient on (s, ey) and its 2x2 Hessian block,
+// added into g and Hs at (is, ie), in closed form.  Per disc, with d the
+// (s, ey) distance to its centre, u = (s - so, ey - eo) / d and the term
+// f(d) = w dsn / max(d - R, OBSTACLE_EPS): the gradient f'(d) u and the
+// block f''(d) u u' + f'(d) (I - u u') / d.  On a floored disc (d - R <
+// OBSTACLE_EPS) the term is a constant and adds nothing; at the tie, JAX's
+// max takes half of each side (tie_weight).
+VCT_HD void obstacle_derivs(float s, float ey, float dsn, int is, int ie, const STParams& p,
+                            float g[NW], float Hs[NSYM]) {
+  float gs = 0.f, ge = 0.f, hss = 0.f, hse = 0.f, hee = 0.f;
+  const int n_obs = (int)p.n_obs;
+  const float wd = p.w_obs * dsn;
+  for (int i = 0; i < n_obs; ++i) {
+    const float a = s - p.obs[i][0], b = ey - p.obs[i][1];
+    const float d = sqrtf(mul_rn(a, a) + mul_rn(b, b));
+    const float x = d - p.obs[i][2];
+    const float live = tie_weight(x, OBSTACLE_EPS);
+    if (live == 0.f) continue;
+    const float den = vmax(x, OBSTACLE_EPS);
+    const float f1 = -live * wd / (den * den);  // f'(d), by the tie weight
+    const float f2 = live * live * (2.f * wd) / (den * den * den);
+    const float ua = a / d, ub = b / d, c = f1 / d;
+    gs += f1 * ua;
+    ge += f1 * ub;
+    hss += f2 * (ua * ua) + c * (1.f - ua * ua);
+    hse += (f2 - c) * (ua * ub);
+    hee += f2 * (ub * ub) + c * (1.f - ub * ub);
+  }
+  g[is] += gs;
+  g[ie] += ge;
+  Hs[sym_w(is, is)] += hss;
+  Hs[sym_w(is, ie)] += hse;
+  Hs[sym_w(ie, ie)] += hee;
+}
+
 // The gradient and the packed Hessian of a single-track stage's AL cost
 // (the seam's included): the nonquadratic part over (Ux, Uy, r, delta,
 // u_Fx) by one second-order jet pass (st_block), the rest in closed form:
-// the boundary, deviation, w, slew and terminal terms and the linear
-// constraint rows 0-2 (constants at stage 0), 4 and 5
+// the boundary, deviation, w, slew and terminal terms, the linear
+// constraint rows 0-2 (constants at stage 0), 4 and 5, and the obstacle
+// barrier on (s, ey) = (4, 5), added after the (5, 5) entry is set
 template <int K>
 VCT_HD void st_cost_derivs(int n, const float wf[NW], const float lam[NC], float mu, float dsn,
                            float dsp, const STParams& p, float g[NW], float Hs[NSYM]) {
@@ -802,10 +863,12 @@ VCT_HD void st_cost_derivs(int n, const float wf[NW], const float lam[NC], float
     Hs[sym_w(8, NZ)] -= coef;
     Hs[sym_w(NZ, NZ)] += coef;
   }
+  if (p.n_obs > 0.f) obstacle_derivs(wf[4], ey, dsn, 4, 5, p, g, Hs);
 }
 
 // the gradient and the packed Hessian of a point-mass stage's AL cost, all
-// in closed form (rows 2-9 of its constraints are constants)
+// in closed form (rows 2-9 of its constraints are constants; the obstacle
+// barrier on (s, ey) = (1, 2), added after the (2, 2) entry is set)
 template <int K>
 VCT_HD void pm_cost_derivs(int n, int H, const float wf[NW], const float lam[NC], float mu,
                            float dsn, float dsp, float dss, const STParams& p, float g[NW],
@@ -864,6 +927,7 @@ VCT_HD void pm_cost_derivs(int n, int H, const float wf[NW], const float lam[NC]
     Hs[sym_w(2, 2)] += 2.f * p.w_ey;
     Hs[sym_w(3, 3)] += 2.f * p.w_epsi;
   }
+  if (p.n_obs > 0.f) obstacle_derivs(wf[1], ey, dsn, 1, 2, p, g, Hs);
 }
 
 // g (NW), the Hessian d2L/dw_r dw_c as its packed upper triangle Hs

@@ -8,13 +8,17 @@
   ``curvature_derivative``, ``position``, ``orientation`` and ``rel2glob``
   are a gather of one coefficient row and a Horner evaluation (of the
   spline or its derivative), with ``s mod length`` for successive laps.
-
-The obstacle lookups are not ported yet.
+* Obstacles: discs placed by (s, ey, radius) (:class:`Obstacle`), a binary
+  occupancy grid over (s, ey) built on the host on its first lookup
+  (``Track.occupancy_grid``), and the device lookups ``occupancy`` (bilinear
+  on that grid) and ``obstacle_distances`` (the (s, ey)-plane distance to
+  each disc's centre, the one the MPC barrier reads).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List
 
 import numpy as np
@@ -105,6 +109,55 @@ def rel2glob(track: TrackData, s, ey, epsi):
     return x - torch.sin(psi_c) * ey, y + torch.cos(psi_c) * ey, wrap(psi_c + epsi)
 
 
+@dataclasses.dataclass(frozen=True)
+class OccupancyGrid:
+    """Device-resident obstacle occupancy over (s, ey) (``Track.occupancy_grid``)."""
+
+    length: torch.Tensor  # scalar track length
+    occ_grid: torch.Tensor  # (n_s, n_ey) binary occupancy over (s, ey)
+    occ_ds: torch.Tensor  # scalar s spacing of occ_grid
+    occ_ey0: torch.Tensor  # scalar first ey sample
+    occ_dey: torch.Tensor  # scalar ey spacing
+
+    def to(self, device=None, dtype=None) -> "OccupancyGrid":
+        return OccupancyGrid(
+            **{
+                f.name: getattr(self, f.name).to(device=device, dtype=dtype)
+                for f in dataclasses.fields(self)
+            }
+        )
+
+
+def occupancy(grid: OccupancyGrid, s, ey):
+    """Bilinear lookup of the obstacle-occupancy grid at (s, ey), with
+    ``s mod length``."""
+    s = torch.remainder(torch.as_tensor(s, dtype=grid.occ_grid.dtype, device=grid.occ_grid.device),
+                        grid.length)
+    ey = torch.as_tensor(ey, dtype=s.dtype, device=s.device)
+    n_s, n_ey = grid.occ_grid.shape
+    fi = torch.clamp(s / grid.occ_ds, 0.0, n_s - 1.001)
+    fj = torch.clamp((ey - grid.occ_ey0) / grid.occ_dey, 0.0, n_ey - 1.001)
+    i = torch.floor(fi).long()
+    j = torch.floor(fj).long()
+    ti = fi - i
+    tj = fj - j
+    g = grid.occ_grid
+    return (
+        g[i, j] * (1 - ti) * (1 - tj)
+        + g[i + 1, j] * ti * (1 - tj)
+        + g[i, j + 1] * (1 - ti) * tj
+        + g[i + 1, j + 1] * ti * tj
+    )
+
+
+def obstacle_distances(track: TrackData, s, ey):
+    """Euclidean (s, ey)-plane distance to each obstacle's centre, the
+    distance the MPC barrier reads; shape (..., n_obs)."""
+    s = torch.as_tensor(s, dtype=track.obstacles.dtype, device=track.obstacles.device)[..., None]
+    ey = torch.as_tensor(ey, dtype=s.dtype, device=s.device)[..., None]
+    return torch.sqrt((s - track.obstacles[:, 2]) ** 2 + (ey - track.obstacles[:, 3]) ** 2)
+
+
 def _wrap_np(angle):
     return np.mod(angle + np.pi, 2.0 * np.pi) - np.pi
 
@@ -118,6 +171,20 @@ class Waypoint:
         self.psi = psi
         self.lb = None
         self.rb = None
+
+
+class Obstacle:
+    """Circular obstacle placed by (s, ey, radius), centred at (cx, cy)."""
+
+    def __init__(self, cx, cy, s, ey, radius):
+        self.cx = cx
+        self.cy = cy
+        self.s = s
+        self.ey = ey
+        self.radius = radius
+
+    def __repr__(self) -> str:
+        return f"Obstacle(cx={self.cx}, cy={self.cy}, radius={self.radius})"
 
 
 class Track:
@@ -139,11 +206,12 @@ class Track:
         self._construct_spline()
         self._precompute_curvatures()
 
-        obs = []
-        for s, ey, radius in config.get("obstacle_data") or []:
-            x, y = self.rel2glob_host(s, ey)
-            obs.append([float(x), float(y), s, ey, radius])
-        obs_arr = np.array(obs, dtype=np.float64).reshape(-1, 5)
+        self.obstacles: List[Obstacle] = self._construct_obstacles(
+            config.get("obstacle_data") or []
+        )
+        obs_arr = np.array(
+            [[o.cx, o.cy, o.s, o.ey, o.radius] for o in self.obstacles], dtype=np.float64
+        ).reshape(-1, 5)
         f64 = torch.float64
         self.data = TrackData(
             length=torch.tensor(self.length, dtype=f64),
@@ -230,6 +298,49 @@ class Track:
         y = self._y_of_sigma(sig) + np.cos(psi_c) * ey
         return x, y
 
+    def _construct_obstacles(self, obstacle_data):
+        """The discs, placed by (s, ey, radius)."""
+        obstacles = []
+        for s, ey, radius in obstacle_data:
+            x, y = self.rel2glob_host(s, ey)
+            obstacles.append(Obstacle(float(x), float(y), s, ey, radius))
+        return obstacles
+
+    @functools.cached_property
+    def _occupancy_host(self):
+        """(s samples, ey samples, grid): the binary occupancy grid over (s,
+        ey), 0.5 m in s, 0.01 m in ey, a cell occupied within radius + 1 of
+        a centre; built on the first lookup."""
+        s_values = np.arange(0.0, self.length - 0.1, 0.5)
+        ey_values = np.arange(0.0, self.width, 0.01) - self.width / 2
+        S, EY = np.meshgrid(s_values, ey_values, indexing="ij")
+        psi_c = self.get_orientation_host(S.ravel()).reshape(S.shape)
+        X = self._x_of_sigma(self._sigma(S.ravel())).reshape(S.shape) - np.sin(psi_c) * EY
+        Y = self._y_of_sigma(self._sigma(S.ravel())).reshape(S.shape) + np.cos(psi_c) * EY
+        Z = np.zeros_like(S)
+        for obs in self.obstacles:
+            # the clearance is radius + 1, unsquared, against the Euclidean
+            # distance (not its square, which the original code compared)
+            Z += (np.sqrt((X - obs.cx) ** 2 + (Y - obs.cy) ** 2) <= obs.radius + 1).astype(float)
+        return s_values, ey_values, Z
+
+    @functools.cached_property
+    def occupancy_grid(self) -> OccupancyGrid:
+        """The occupancy grid for the device lookup ``occupancy`` (f64, CPU)."""
+        s_values, ey_values, grid = self._occupancy_host
+        f64 = torch.float64
+        return OccupancyGrid(
+            length=torch.tensor(self.length, dtype=f64),
+            occ_grid=torch.from_numpy(grid),
+            occ_ds=torch.tensor(s_values[1] - s_values[0], dtype=f64),
+            occ_ey0=torch.tensor(ey_values[0], dtype=f64),
+            occ_dey=torch.tensor(ey_values[1] - ey_values[0], dtype=f64),
+        )
+
+    def occupancy(self, s, ey):
+        """Bilinear occupancy lookup on the host."""
+        return _bilinear(*self._occupancy_host, s, ey)
+
     def _precompute_curvatures(self):
         # sample every 0.05 m then refit a cubic
         s_values = np.arange(0.0, self.length - 0.1, CURVATURE_DS)
@@ -239,6 +350,21 @@ class Track:
         self._k_coeffs = _uniform_cubic_coeffs(s_values, k_values)
         self._x_coeffs = _uniform_cubic_coeffs(s_values, x_values)
         self._y_coeffs = _uniform_cubic_coeffs(s_values, y_values)
+
+
+def _bilinear(xs, ys, grid, x, y):
+    x = np.clip(x, xs[0], xs[-1])
+    y = np.clip(y, ys[0], ys[-1])
+    i = np.clip(np.searchsorted(xs, x) - 1, 0, len(xs) - 2)
+    j = np.clip(np.searchsorted(ys, y) - 1, 0, len(ys) - 2)
+    tx = (x - xs[i]) / (xs[i + 1] - xs[i])
+    ty = (y - ys[j]) / (ys[j + 1] - ys[j])
+    return (
+        grid[i, j] * (1 - tx) * (1 - ty)
+        + grid[i + 1, j] * tx * (1 - ty)
+        + grid[i, j + 1] * (1 - tx) * ty
+        + grid[i + 1, j + 1] * tx * ty
+    )
 
 
 def _uniform_cubic_coeffs(s_values: np.ndarray, values: np.ndarray) -> np.ndarray:

@@ -52,12 +52,29 @@ def make_batched_racing_step(problem, solver_cfg, transition, track_data, dt, s_
     return step
 
 
-def initial_states(track_length: float, B: int, rng: np.random.Generator) -> np.ndarray:
+def initial_states(track_length: float, B: int, rng: np.random.Generator,
+                   obstacles=None) -> np.ndarray:
     """The throughput bench's scenario drop for the dynamic car (bench.py's
-    ``initial_states``, no obstacles): uniform s along the lap, ey in
-    [-1, 1], Ux in [6, 14]; (B, 8) float64."""
+    ``initial_states``): uniform s along the lap, ey in [-1, 1], Ux in
+    [6, 14]; (B, 8) float64.  With ``obstacles`` (the track's (n_obs, 5)
+    table: cx, cy, s, ey, radius), bench.py's ``avoid_obstacles``: a drop
+    within radius + 2 of a disc's centre in the (s, ey) plane is an
+    infeasible start, so those drops are drawn again, up to 50 rounds."""
     states = np.zeros((B, 8), np.float64)
-    states[:, 4] = rng.uniform(0, float(track_length), B)
-    states[:, 5] = rng.uniform(-1.0, 1.0, B)
+    s = rng.uniform(0, float(track_length), B)
+    ey = rng.uniform(-1.0, 1.0, B)
+    if obstacles is not None:
+        obs = np.asarray(obstacles, np.float64)
+        for _ in range(50):
+            bad = np.zeros(B, bool)
+            for o in obs:
+                d = np.sqrt((s - o[2]) ** 2 + (ey - o[3]) ** 2)
+                bad |= d < (o[4] + 2.0)
+            if not bad.any():
+                break
+            s[bad] = rng.uniform(0, float(track_length), int(bad.sum()))
+            ey[bad] = rng.uniform(-1.0, 1.0, int(bad.sum()))
+    states[:, 4] = s
+    states[:, 5] = ey
     states[:, 0] = 6.0 + rng.uniform(0, 8, B)
     return states

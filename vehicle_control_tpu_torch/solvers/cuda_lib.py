@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 )
 MAX_ALPHA = 16  # csrc/singletrack.cuh: MAX_ALPHA, the step sizes kernels 1 and 3 take
 MAX_OUTER = 15  # csrc/solve_fm.cu: MAX_OUTER, the outer iterations kernel 3 takes
+MAX_OBS = 16  # csrc/singletrack.cuh: MAX_OBS, the obstacle table's discs
 SOLVE_STATS = 6  # rows of kernel 3's per-lane outputs: cost, violation,
 # converged, iterations, first accepted step, inner iterations run
 
@@ -96,6 +97,10 @@ PARAM_FIELDS = (
     "u1_lo_pm", "u1_hi_pm",
     # the horizon's split: N single-track stages, pm = 1 for the tail
     "N", "pm",
+    # the obstacle barrier: the discs in use, the weight, then the table of
+    # MAX_OBS discs (s, ey, r + 0.1), zero past n_obs
+    "n_obs", "w_obs",
+    *(f"obs{i}_{k}" for i in range(MAX_OBS) for k in ("s", "ey", "R")),
 )
 
 
@@ -238,7 +243,8 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def family_params(family) -> np.ndarray:
-    """The family's car parameters, weights and bounds in STParams order (f32)."""
+    """The family's car parameters, weights, bounds and obstacle table in
+    STParams order (f32).  A family with more than MAX_OBS discs raises."""
     p, w = family.params, family.weights
     ci, cs = family.input_constraints, family.state_constraints
     ct = family.tail_constraints or {}
@@ -265,6 +271,17 @@ def family_params(family) -> np.ndarray:
         ey_max_pm=ct.get("ey_max", 0.0), N=family.N, pm=1.0 if pm else 0.0,
     )
     vals["u1_lo_pm"], vals["u1_hi_pm"] = family.u_box(family.H - 1, 1)
+    if len(family.obstacles) > MAX_OBS:
+        raise ValueError(f"{len(family.obstacles)} obstacles: the kernels' table holds "
+                         f"{MAX_OBS} (csrc/singletrack.cuh: MAX_OBS)")
+    vals.update(n_obs=len(family.obstacles), w_obs=w.get("obstacles", 0.0) if family.obstacles
+                else 0.0)
+    for i in range(MAX_OBS):
+        so, eo, ro = family.obstacles[i] if i < len(family.obstacles) else (0.0, 0.0, 0.0)
+        # r + 0.1 in Python floats, rounded to f32 once, as the plain
+        # version's f32 tensors round it
+        vals.update({f"obs{i}_s": so, f"obs{i}_ey": eo,
+                     f"obs{i}_R": ro + 0.1 if i < len(family.obstacles) else 0.0})
     return np.asarray([vals[k] for k in PARAM_FIELDS], np.float32)
 
 

@@ -16,8 +16,12 @@ ey, epsi, t) and the RK4 step; stage N-1 hands off to the point mass
 (``fm_singletrack.seam_fields``) and stashes the total lateral force in
 z[5]; stages n >= N carry (V, s, ey, epsi, t) and an explicit Euler step.
 Control 1 is the steer rate w before N and the lateral force Fy in kN from
-N on.  The kinematic tail, the obstacle barrier and the pure kinematic
-family come later.
+N on.  With ``cfg["obstacles"]`` the track's discs add a barrier cost,
+sum_i w dsn / max(dist_i - (r_i + 0.1), OBSTACLE_EPS) over the (s, ey)
+distance to each disc's centre, to every stage: on (z[4], z[5]) at the
+single-track stages (the seam's included), on (z[1], z[2]) at the
+point-mass stages.  It is a cost term, not a constraint row.  The kinematic
+tail and the pure kinematic family come later.
 
 ``stage_derivs`` is the hand-derived twin of the JAX package's restructured
 exact derivatives, with no autograd in it:
@@ -40,6 +44,11 @@ exact derivatives, with no autograd in it:
   plus the unit columns of s and t; the Hessian in closed form (boundary,
   deviation, the V floor, the engine-power row, the Fx/Fy slew, the
   switching cost at n = N and the terminal cost).
+
+With obstacles, the barrier's gradient comes with the rest of the gradient's
+jets, and its 2x2 (s, ey) Hessian block from second-order jets over (s, ey)
+(JAX: a small forward-over-reverse pass); the dynamics never read s, so the
+Jacobian's s column stays a unit column.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ PM_COLS = (0, 2, 3, 10, 11)  # what the point-mass Euler step reads: V, ey, epsi
 # clamps V >= 0.5, |ey| <= 8, |epsi| <= 1.3, then the softplus-floored 1/s_dot
 PM_CLAMPS = {0: (0.5, 1e3), 2: (-8.0, 8.0), 3: (-1.3, 1.3)}
 TAIL_BOX = (-25.0, 25.0)  # Fy box in kN on the point-mass stages
+OBSTACLE_EPS = 1e-2  # the floor of the obstacle barrier's denominator
 
 
 class FMFamily(NamedTuple):
@@ -91,6 +101,7 @@ class FMFamily(NamedTuple):
     input_constraints: dict
     state_constraints: dict
     tail_constraints: dict | None  # state_pm_constraints for tail="pm"
+    obstacles: tuple  # the barrier's discs, (s, ey, r) each; () without obstacles
 
 
 def _active(x, dtype):
@@ -123,15 +134,39 @@ def pm_step(x5, Fx, Fy, k, h, p):
     return [a + h * b for a, b in zip(x5, pm_prime(x5, Fx, Fy, k, p))]
 
 
-def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
-    """Field-wise twin of problems.build_cascaded_problem (tail "none" or "pm")."""
+def _obstacle_rows(track_data, on: bool) -> tuple:
+    """The track's discs as Python floats (s, ey, r), or () when off."""
+    if not on:
+        return ()
+    if track_data is None:
+        raise ValueError("obstacles need the track's data (track_data)")
+    obs = track_data.obstacles.detach().cpu().double().numpy()
+    return tuple((float(o[2]), float(o[3]), float(o[4])) for o in obs)
+
+
+def _obstacles_std(rows, s, ey, dsn, w_obs):
+    """The obstacle barrier, sum over the discs in table order of
+    w dsn / max(dist - (r + 0.1), OBSTACLE_EPS); (r + 0.1) is formed in
+    Python floats."""
+    acc = torch.zeros_like(J.val(s))
+    for so, eo, ro in rows:
+        dist = J.sqrt((s - so) ** 2 + (ey - eo) ** 2)
+        den = J.maximum(dist - (ro + 0.1), OBSTACLE_EPS)
+        acc = acc + w_obs * dsn / den
+    return acc
+
+
+def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) -> FMFamily:
+    """Field-wise twin of problems.build_cascaded_problem (tail "none" or
+    "pm"); with ``cfg["obstacles"]`` the barrier over the discs of
+    ``track_data`` (a TrackData)."""
     N = int(cfg["horizon"])
     M = int(cfg["horizon_pm"]) if tail == "pm" else 0
-    if tail not in ("none", "pm") or bool(cfg.get("obstacles", False)):
+    if tail not in ("none", "pm"):
         raise NotImplementedError(
             "the torch port covers the single-track family and the point-mass "
-            "cascade without obstacles (tail='none', 'pm'); the obstacle barrier "
-            "and then the kinematic tail (tail='kc') are the next slices of the port"
+            "cascade (tail='none', 'pm'); the kinematic tail (tail='kc') is the "
+            "next slice of the port"
         )
     if M == 0:
         tail = "none"
@@ -144,6 +179,8 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
     ci = {k: float(v) for k, v in cfg["input_constraints"].items()}
     cs = {k: float(v) for k, v in cfg["state_constraints"].items()}
     ct = {k: float(v) for k, v in cfg["state_pm_constraints"].items()} if pm else None
+    rows = _obstacle_rows(track_data, bool(cfg.get("obstacles", False)))
+    w_obs = w.get("obstacles", 0.0)
     FS = FORCE_SCALE
     fs = 1.0 / FS
 
@@ -163,6 +200,8 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
             cost = fm.st_running_cost_fields(
                 n, z[:8], Fx, u1, Fx_prev, dsn, ds_prev, p, w, cs, N
             )
+            if rows:
+                cost = cost + _obstacles_std(rows, z[4], z[5], dsn, w_obs)
         else:
             ey = z[2]
             cost = fm.boundary_fields(ey, dsn, w["boundary"], ct["ey_min"], ct["ey_max"])
@@ -170,6 +209,8 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
             if n >= N + 1:  # Fx/Fy slew against the previous action
                 cost = cost + ((w["Fx"] / ds_prev) * (Fx - Fx_prev) ** 2
                                + (w["Fy"] / ds_prev) * (u1 - u1_prev) ** 2)
+            if rows:  # the point mass reads the same weight (not obstacles_pm)
+                cost = cost + _obstacles_std(rows, z[1], ey, dsn, w_obs)
             if n == N:  # switching cost against the seam's stashed lateral force
                 cost = cost + (w["switch_F"] / ds_read(N - 1)) * (
                     (Fx - Fx_prev) ** 2 + (u1 - z[5]) ** 2
@@ -232,6 +273,15 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
             Jm[..., r, i] = 1.0
         return Jm
 
+    def _obstacle_block(Hw, i_s, i_ey, s, ey, dsn):
+        """Add the barrier's 2x2 Hessian block on (s, ey) at (i_s, i_ey)."""
+        if not rows:
+            return
+        se = Jet.seed([s, ey], second=True)
+        h = _obstacles_std(rows, se[0], se[1], dsn, w_obs).h
+        idx = torch.tensor((i_s, i_ey), device=Hw.device)
+        Hw[..., idx[:, None], idx[None, :]] += h.expand(Hw.shape[:-2] + (2, 2))
+
     def _st_hessian(n, wf, lam, mu, dsn, ds_prev, zero):
         """Hessian of a single-track stage's AL cost (stages n < N)."""
         s5 = Jet.seed([wf[i] for i in VIDX], second=True)
@@ -273,6 +323,7 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
             Hw[..., 8, NZ] -= coef
             Hw[..., NZ, 8] -= coef
             Hw[..., NZ, NZ] += coef
+        _obstacle_block(Hw, 4, 5, wf[4], wf[5], dsn)
         return Hw
 
     def _tail_hessian(n, wf, lam, mu, dsn, ds_prev, ds_seam, zero):
@@ -319,6 +370,7 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
             Hw[..., 0, 0] += (2.0 * w["speed"]) * (V >= cs["max_speed"]).to(zero.dtype)
             Hw[..., 2, 2] += 2.0 * w["ey"]
             Hw[..., 3, 3] += 2.0 * w["epsi"]
+        _obstacle_block(Hw, 1, 2, wf[1], wf[2], dsn)
         return Hw
 
     def stage_derivs(n, wf, lam, mu, kv, ds_read):
@@ -364,4 +416,5 @@ def build_cascaded_family(car_config, cfg, tail: str = "none") -> FMFamily:
         NZ=NZ, NU=NU, NC=NC, H=H, N=N, tail=tail, al_cost=al_cost, dyn=dyn, u_box=u_box,
         stage_cost=stage_cost, constraints=constraints, stage_derivs=stage_derivs,
         params=p, weights=w, input_constraints=ci, state_constraints=cs, tail_constraints=ct,
+        obstacles=rows,
     )
