@@ -3,7 +3,7 @@
 Builds the five CUDA kernels from ``vehicle_control_tpu_torch/csrc`` with
 nvcc (one process per source, all at once) and prints each kernel's
 registers and stack, and for kernels 1-4 their launch shape (threads per
-launch, shared memory per block, resident warps per SM).  Then it runs three
+launch, shared memory per block, resident warps per SM).  Then it runs four
 families at the bench's protocol (B=4096, f32, K=10 steps per chunk, states
 from ``initial_states`` seed 0 with their aligned carries):
 
@@ -15,7 +15,12 @@ from ``initial_states`` seed 0 with their aligned carries):
 * the cascade with obstacles (bench.py's ``cascaded_obstacles``: the same
   cascade with ippodromo's seven discs as a barrier cost, budget 3 x 10 + 6
   polish, 8 steps, mu0=300, mu_scale=100, recovery above a violation of
-  0.5; its drops clear of the discs, bench.py's ``avoid_obstacles``).
+  0.5; its drops clear of the discs, bench.py's ``avoid_obstacles``);
+* the pure kinematic family (bench.py's ``kinematic``: ``kinematic.yaml``
+  as shipped, N=50 running stages and the terminal stage, obstacles on,
+  budget 2 x 3, 6 steps, mu0=10; the kinematic car's drops, v in [2, 8],
+  clear of the discs), on the kernels' instantiation for its own parameter
+  block (``_kin`` entries).
 
 For each family it holds kernels 1 (line search), 2 (backward pass), 4
 (stage derivatives), 5 (the line search in the array-of-structs layout,
@@ -24,14 +29,16 @@ against their plain PyTorch versions on the inputs
 of the solve after one closed-loop step whose solve is the plain whole
 solve (so no kernel computed them; kernel 3 at the full budget on that
 step's own cold first solve, both f32 versions against the plain version
-in f64), drives the main path (the whole solve
+in f64, which runs on the CPU in six processes beside the card's phases),
+drives the main path (the whole solve
 in one launch, kernel 3), 1 warm and 3 timed chunks, with exactly one
 kernel-3 launch per step and nothing else, profiles one main-path step,
 counts each kernel's work and times each kernel against its plain version
 (kernels 1, 4 and 5 as the launch alone and with their wrappers).  For the
-single-track family it also drives the per-phase route (kernels 1 + 2) and
-the derivatives route (kernel 4, the torch Riccati sweep, kernel 1), 1 warm
-and 1 timed chunk of 1 step each, with their launch counts.  Kernel 5 sits
+single-track and the kinematic family it also drives the per-phase route
+(kernels 1 + 2) and the derivatives route (kernel 4, the torch Riccati
+sweep, kernel 1), 1 warm and 1 timed chunk of 1 step each, with their
+launch counts.  Kernel 5 sits
 on no route (as in the JAX package): it is launched only to be checked and
 timed beside kernel 1.
 
@@ -51,6 +58,12 @@ each disc on is printed beside the JAX lap's (the choice is multi-modal,
 so it is not gated); its violations stay at most 1e-2, or else the lap is
 replayed to the step of its largest violation and kernel 3 there is held
 against the plain whole solve in f32 and f64, that violation included.
+Last, the kinematic lap:
+``KinematicRacingSimulator`` from the simconfig with the ``kinematic``
+controller (f32, kernel 3 at B=1 and the YAML's budget) laps ippodromo,
+its lap time within 0.25 s of the JAX f64 kinematic lap, its violations at
+most 1e-2, one kernel-3 launch a step, and kernel 3 on the inputs of its
+steps 0, 100 and 200 against the plain whole solve in f32 and f64.
 
     python3 chip_smoke.py
 
@@ -86,7 +99,12 @@ FAMILIES = {  # controller config, tail, its overrides, budget (bench.py's famil
     "cascaded_obstacles": ("cascaded.yaml", "pm", dict(horizon=20, horizon_pm=40, obstacles=True),
                            dict(n_outer=3, n_inner=10, n_polish=6, n_alpha=8, mu0=300.0,
                                 mu_scale=100.0, recover_viol=0.5)),
+    "kinematic": ("kinematic.yaml", "kinematic", dict(obstacles=True),
+                  dict(n_outer=2, n_inner=3, n_alpha=6, mu0=10.0)),
 }
+# the families that also drive the two earlier routes (kernels 1 + 2, and
+# kernel 4 with kernel 1), cut in depth
+SIDE_ROUTES = ("singletrack", "kinematic")
 # Kernel vs plain, at a real warm-started state, twice.  With the Riccati
 # regularization rho = RHO_WELL both computations are well conditioned (the
 # plain version in f32 stays within ~1e-5 of f64), so the kernel is held to
@@ -131,8 +149,8 @@ BW_FLOOR = 1e-5  # per lane, |a - b| / (1 + max |b| of the lane)
 DV_TOL = 1e-4
 WITNESS_SHARE, WITNESS_ROWS = 1e-3, 24  # the share; the decided lanes printed
 ULP_COPIES = 64  # copies of a disputed rollout's inputs, one f32 ulp apart
-# The obstacle cascade, and only it, has lanes at knife edges that the
-# other families' gates leave no room for: a rollout beside a disc's
+# The families with obstacles have lanes at knife edges that the other
+# families' gates leave no room for: a rollout beside a disc's
 # floor, whose barrier term w ds / (d - R) amplifies the rounding of the
 # states by d / (d - R); a PHR row on its boundary with a zero multiplier,
 # whose activity (and so the Hessian and the gains) turns on the last bit
@@ -146,9 +164,19 @@ ULP_COPIES = 64  # copies of a disputed rollout's inputs, one f32 ulp apart
 # accurate on its inputs and ULP_COPIES copies of them one ulp apart
 # (``copies_side``), as the +inf verdicts above.  The shares are the
 # measured counts' (PERF.md) with room to spare.
+# The kinematic family's 51-stage horizons run into the same discs (PERF.md:
+# 1 rollout of 24,576 beyond LS_RTOL, kernel 2 30 lanes at rho = 1 and 11
+# at rho0, check (i) 213 of 4,096; kernel 4 none, it keeps its direct gate).
 FAMILY_SHARES = {
     "cascaded_obstacles": dict(rtol=WITNESS_SHARE, kernel2=1e-2, kernel4=1e-2, solve=5e-2),
+    "kinematic": dict(rtol=WITNESS_SHARE, kernel2=1e-2, solve=1e-1),
 }
+# The gates of a family where a lane that f64 on its inputs gives to the
+# plain version is decided on the inputs and ULP_COPIES copies of them one
+# ulp apart (``copies_side``): check (i) ("solve") on the obstacle cascade;
+# check (i) and kernel 2 on the kinematic family (PERF.md: 1 lane of check
+# (i), 1 of kernel 2 at each regularization).
+FAMILY_COPIES = {"cascaded_obstacles": ("solve",), "kinematic": ("solve", "kernel2")}
 # Kernel 3, (i) one outer x one inner iteration at rho0 = RHO_WELL: the
 # chosen step is identical on >= STEP_SAME of the lanes, and on those X, U
 # (per lane, of the lane's magnitude) and cost (relative) agree to SOLVE_TOL.
@@ -170,12 +198,17 @@ SOLVE_TOL = 1e-4
 STEP_SAME = 0.999
 CONV_GAP, FLIP_MAX, COST_MEDIAN, ITER_WITHIN2 = 0.02, 0.02, 1e-4, 0.95
 CONV_FLOOR = 0.90  # sanity gate on the converged fraction, not a target
-REPS, PLAIN_REPS = 20, 2  # the plain whole solve is timed once, in check (ii)
+# the kernels timed median of REPS; the plain versions once, without a
+# warm-up (they ran on the same shapes in the checks); the plain whole
+# solve once, in check (ii)
+REPS, PLAIN_REPS = 20, 1
 # Check (ii)'s plain solve in f64 of the families named here runs on the CPU
-# on their first lanes, in CPU_WORKERS processes beside the card's phases:
-# the obstacle cascade's 36 inner iterations cost the plain solve on the
-# card ~3-4 minutes in each precision (its ops are launch-bound at any B).
-CPU_F64_LANES, CPU_WORKERS = {"cascaded_obstacles": 1024}, 6
+# on their first lanes (all B but on the obstacle cascade), in CPU_WORKERS
+# processes beside the card's phases: the plain whole solve is launch-bound
+# on the card at any B (~1.5-2 minutes for the single track and the cascade
+# in each precision, ~3-5 for the obstacle cascade's 36 inner iterations),
+# and six CPU processes take B=4096 lanes of the single track in about one.
+CPU_F64_LANES, CPU_WORKERS = {"singletrack": B, "cascaded": B, "cascaded_obstacles": 1024}, 6
 # the card's published peaks (H100 SXM data sheet): f32 outside the tensor
 # cores and HBM bandwidth, for each kernel's bound
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -191,6 +224,12 @@ DEVICE = "cuda"
 # ACTION_FLOOR.
 LAP_MAX_STEPS, LAP_CHUNK, SYNC_CHECK_STEPS = 600, 25, 3
 LAP_REF_S, LAP_TOL_S, LAP_VIOL_MAX = 20.85, 0.25, 1e-2
+# The kinematic lap: the simconfig with the kinematic controller through
+# KinematicRacingSimulator; its lap time within LAP_TOL_S of the JAX
+# package's f64 kinematic lap (tests/kinematic_lap_study.py: 375 steps, no
+# violation), its violations at most LAP_VIOL_MAX; the first actions on its
+# SNAP_STEPS as the cascade lap's.
+KIN_LAP_REF_S = 18.75
 # The obstacle lap: the same simulator with obstacles on, at most
 # OBS_LAP_MAX_STEPS steps; its lap time within OBS_LAP_TOL (relative) of the
 # JAX package's f64 obstacle lap in OBS_REF_RUN (553 steps), every disc
@@ -208,6 +247,13 @@ OBS_LAP_MAX_STEPS, OBS_LAP_TOL = 800, 0.10
 OBS_REF_RUN = os.path.join("experiments", "data", "verify_obs_ippodromo")
 SNAP_STEPS = (0, 100, 200)
 ACTION_TOL, ACTION_FLOOR = 1e-3, 1e-5
+# On the kinematic lap a step that misses that gate is decided by the f64
+# witness (``lane_witness``: kernel 3's error against f64 at most the
+# largest QUANT_FACTOR x the plain f32 version's plus ACTION_FLOOR), on at
+# most LAP_SHARES of its SNAP_STEPS: the family can be multi-modal, and at
+# its step 200 both f32 solves part from f64 by ~0.13 of the lap's RMS
+# action (PERF.md).  The cascade lap keeps the gate.
+LAP_SHARES = {"kinematic_vs_plain": 1 / len(SNAP_STEPS)}
 
 
 def phase(label, **fields):
@@ -587,7 +633,7 @@ def lane_witness(what, disputed, kern64, plain64, floor, share=WITNESS_SHARE, ed
                    disputed.numel() if total is None else total, share)
 
 
-def copies_side(lanes, kernel_fn, plain_fn, err_fn, args, floor):
+def copies_side(lanes, kernel_fn, plain_fn, err_fn, args, floor, exact=()):
     """(the lanes' bool, their numbers) for ``lane_witness``: where a lane's
     error turns on its inputs' last bits, the kernel (``kernel_fn``) and the
     plain f32 version (``plain_fn``) run on the lanes' f32 inputs ``args``
@@ -596,8 +642,9 @@ def copies_side(lanes, kernel_fn, plain_fn, err_fn, args, floor):
     f64 outputs -> (n,) errors); it sides with the kernel where the kernel's
     mean error is at most the largest QUANT_FACTOR x the plain f32
     version's plus ``floor``, as ``inf_witness`` counts the +inf verdicts
-    of both on copies."""
-    ins = [torch.cat([t[lanes], c]) for t, c in zip(args, ulp_copies(args, lanes))]
+    of both on copies (``exact``: the indices of ``args`` not perturbed, as
+    ``ulp_copies`` takes them)."""
+    ins = [torch.cat([t[lanes], c]) for t, c in zip(args, ulp_copies(args, lanes, exact=exact))]
     ref64 = plain_fn(*(t.double() for t in ins))
     n = len(lanes)  # copy c of lane i sits at (c + 1) * n + i, the lane itself at i
     kern = err_fn(kernel_fn(*ins), ref64).reshape(-1, n).mean(0)
@@ -686,8 +733,9 @@ def load_count_build(path, proc):
         os.replace(proc.args[-1], path)
     lib = ctypes.CDLL(path)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.vct_host_derivs.argtypes = [P] * 10 + [I, I]
-    lib.vct_host_backward.argtypes = [P] + [P] * 11 + [I, I]
+    for suffix in ("", "_kin"):  # the cascaded family's entries, the kinematic family's
+        getattr(lib, "vct_host_derivs" + suffix).argtypes = [P] * 10 + [I, I]
+        getattr(lib, "vct_host_backward" + suffix).argtypes = [P] + [P] * 11 + [I, I]
     lib.vct_host_ops.restype = ctypes.c_double
     return lib
 
@@ -708,12 +756,29 @@ def code_op_counts(lib, fam, dv_args, bw_args):
     bw = [cuda_lib.soa(t.cpu()) for t in bw_args] + [
         torch.empty(s) for s in ((H, NU, L), (H, NU, NZ, L), (2, L), (L,))]
     counts = []
-    for fn, ts in ((lib.vct_host_derivs, dv), (lib.vct_host_backward, bw)):
+    for fn, ts in ((getattr(lib, cuda_lib.entry(fam, "vct_host_derivs")), dv),
+                   (getattr(lib, cuda_lib.entry(fam, "vct_host_backward")), bw)):
         lib.vct_host_ops()
         if fn(params.ctypes.data, *[t.data_ptr() for t in ts], L, H):
             raise RuntimeError("the counting host build refused its inputs")
         counts.append(lib.vct_host_ops() / L)
     return counts
+
+
+def unlaunched(kernels):
+    """The (kernel, family) pairs of the kernels line that were launched on
+    no path: kernel 5 sits on no route; every other kernel must have run,
+    in all (its top-level count), in each family that drives the earlier
+    routes (SIDE_ROUTES), and kernel 3 in every family."""
+    out = []
+    for k in kernels:
+        if k["name"] == "linesearch_aos":
+            continue
+        if k["launches"] < 1:
+            out.append((k["name"], "all"))
+        out += [(k["name"], label) for label, per in k["per_family"].items()
+                if per["launches"] < 1 and (label in SIDE_ROUTES or k["name"] == "solve_fm")]
+    return out
 
 
 def nbytes(*tensors):
@@ -754,22 +819,39 @@ def drive(step, carry, states, wrappers, expected, k, chunks, label):
     return carry, states, times, conv.float().mean().item()
 
 
+def family_model(label, env):
+    """(car config, plant transition, the plant state's s index, its fields)
+    of a family: the kinematic car for the kinematic family, the dynamic car
+    for the others."""
+    if FAMILIES[label][1] == "kinematic":
+        return env["kin_car"], env["kin_transition"], 2, 6
+    return env["car"], env["transition"], 4, 8
+
+
+def build_problem(label, car, track, dtype, device, root):
+    """A family's problem on ``device`` in ``dtype``."""
+    from vehicle_control_tpu_torch.controllers.mpc import problems
+
+    ctrl, tail = family_ctrl(label, root)
+    if tail == "kinematic":
+        return problems.build_kinematic_problem(car, track, ctrl, dtype, device)
+    return problems.build_cascaded_problem(car, track, ctrl, tail, dtype, device)
+
+
 def family_problem(label, env):
     """(problem, budget, main-path config, main-path step, shape fields)."""
-    from vehicle_control_tpu_torch.controllers.mpc import problems
     from vehicle_control_tpu_torch.parallel.batch import make_batched_racing_step
     from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig
 
-    ctrl, tail = family_ctrl(label, env["root"])
+    car, transition, s_index, _ = family_model(label, env)
     budget = FAMILIES[label][3]
-    problem = problems.build_cascaded_problem(env["car"], env["track"], ctrl, tail,
-                                              torch.float32, env["dev"])
+    problem = build_problem(label, car, env["track"], torch.float32, env["dev"], env["root"])
     fam = problem.family
-    shape = dict(B=B, H=fam.H) if tail == "none" else dict(B=B, N=fam.N, M=fam.H - fam.N)
+    shape = (dict(B=B, N=fam.N, M=fam.H - fam.N) if fam.tail == "pm" else dict(B=B, H=fam.H))
     if fam.obstacles:
         shape["discs"] = len(fam.obstacles)
     cfg = ALILQRConfig(**budget, use_solve_kernel=True)
-    main_step = make_batched_racing_step(problem, cfg, env["transition"], env["tdata"], DT, 4)
+    main_step = make_batched_racing_step(problem, cfg, transition, env["tdata"], DT, s_index)
     return problem, budget, cfg, main_step, shape
 
 
@@ -794,7 +876,7 @@ class PlainSolve:
         return self.outputs[:7]
 
 
-def warm_inputs(problem, cfg, env):
+def warm_inputs(label, problem, cfg, env):
     """The checks' inputs, computed by no kernel: the drops
     (``initial_states`` seed 0, clear of the discs where the family has
     obstacles) with their aligned carry, one closed-loop
@@ -810,12 +892,13 @@ def warm_inputs(problem, cfg, env):
     from vehicle_control_tpu_torch.solvers.al_ilqr import rollout
 
     dev, f32 = env["dev"], torch.float32
+    _, transition, s_index, ns = family_model(label, env)
     plain = PlainSolve(problem.family, cfg)
-    plain_step = make_batched_racing_step(problem, cfg, env["transition"], env["tdata"], DT, 4,
+    plain_step = make_batched_racing_step(problem, cfg, transition, env["tdata"], DT, s_index,
                                           kernels=dict(solve_kernel=plain))
     obstacles = env["track"].data.obstacles.numpy() if problem.family.obstacles else None
     states = torch.as_tensor(initial_states(env["track"].length, B, np.random.default_rng(0),
-                                            obstacles), dtype=f32, device=dev)
+                                            obstacles, ns=ns), dtype=f32, device=dev)
     carry = aligned_carry(problem, states)
     carry1, states1, _, _ = plain_step(carry, states)
     params, z0 = problem.init_horizon(states1, carry1.X_pred, carry1.U_pred)
@@ -849,20 +932,22 @@ def run_family(label, env):
 
     dev, f32 = env["dev"], torch.float32
     problem, budget, cfg, main_step, shape = family_problem(label, env)
-    # the witnesses' shares (direct gates: 0) and their copies (FAMILY_SHARES)
+    # the witnesses' shares (direct gates: 0; FAMILY_SHARES) and the gates decided
+    # on copies of the inputs (FAMILY_COPIES)
     shares = {"rtol": 0.0, "kernel2": 0.0, "kernel4": 0.0, "solve": WITNESS_SHARE,
               **FAMILY_SHARES.get(label, {})}
-    knife = label in FAMILY_SHARES
-    fam, tail = problem.family, FAMILIES[label][1]
+    copy_gates = FAMILY_COPIES.get(label, ())
+    fam = problem.family
     H = fam.H
+    _, transition, s_index, _ = family_model(label, env)
     (solve_kernel,) = main_step.kernels
     side = {}
-    if tail == "none":  # the two earlier routes
+    if label in SIDE_ROUTES:  # the two earlier routes
         side["per_phase_path"] = make_batched_racing_step(
-            problem, ALILQRConfig(**budget), env["transition"], env["tdata"], DT, 4)
+            problem, ALILQRConfig(**budget), transition, env["tdata"], DT, s_index)
         side["derivs_path"] = make_batched_racing_step(
-            problem, ALILQRConfig(**budget, use_derivs_kernel=True), env["transition"],
-            env["tdata"], DT, 4)
+            problem, ALILQRConfig(**budget, use_derivs_kernel=True), transition,
+            env["tdata"], DT, s_index)
         ls_kernel, bw_kernel = side["per_phase_path"].kernels
         ls_kernel_d, dv_kernel = side["derivs_path"].kernels
     else:  # no route of the cascade runs kernels 1, 2 and 4 on the card
@@ -874,7 +959,7 @@ def run_family(label, env):
     # kernel inputs from a real warm-started state that no kernel computed:
     # one closed-loop step of the plain whole solve, then the next solve's
     # inputs and its first backward pass and line search
-    w = warm_inputs(problem, cfg, env)
+    w = warm_inputs(label, problem, cfg, env)
     if label in CPU_F64_LANES:  # check (ii)'s f64 solve, beside the card's phases
         f64_jobs = start_cpu_solves(env["root"], label, cfg, w["first"][0], CPU_F64_LANES[label])
     carry1, states1, z0, U_init, U, X, lam, mu, curv, ds = (
@@ -942,10 +1027,13 @@ def run_family(label, env):
         disputed, decided = backward_disputes(got, ref, well_c), "0"
         if disputed.any():
             w64 = ref64 if ref64 is not None else backward_plain(fam, *(t.double() for t in bw_args))
+            edge = (lambda lanes, w=well_c, a=bw_args: copies_side(  # noqa: E731
+                lanes, bw_kernel, lambda *x: backward_plain(fam, *x),
+                lambda out, r64: backward_lane_errors(out, r64, w), a, BW_FLOOR, exact=(3, 4)))
             decided = lane_witness(f"kernel 2 (rho={rho_v})", disputed,
                                    backward_lane_errors(got, w64, well_c),
                                    backward_lane_errors(ref, w64, well_c), BW_FLOOR,
-                                   shares["kernel2"])
+                                   shares["kernel2"], edge if "kernel2" in copy_gates else None)
         rows, err, missed = backward_gates(f"kernel 2 (rho={rho_v})", got, ref, ref64, disputed)
         rows["witness"] = decided
         if missed:
@@ -958,14 +1046,22 @@ def run_family(label, env):
     phase(f"{label}:kernel2_vs_plain", **shape, rho_well=RHO_WELL, rho_solver=cfg.rho0,
           max_abs_err_well=f"{bw_abs:.3e}", **bw_rows)
 
-    # the launch shapes of kernels 1, 5 and 4 at the family's shapes
+    # the launch shapes of kernels 1, 5 and 4 at the family's shapes (and of
+    # kernels 2 and 3, where the family has its own instantiation)
     lib = cuda_lib.load_library()
-    launch_shapes = dict(ls=cuda_lib.launch_info(lib.vct_linesearch_fm_info, B, len(alphas)),
-                         aos=cuda_lib.launch_info(lib.vct_linesearch_aos_info, B, len(alphas)),
-                         dv=cuda_lib.launch_info(lib.vct_derivs_fm_info, B, H))
-    phase(f"{label}:launch:linesearch_fm", B=B, A=len(alphas), **launch_shapes["ls"])
-    phase(f"{label}:launch:linesearch_aos", B=B, A=len(alphas), **launch_shapes["aos"])
-    phase(f"{label}:launch:derivs_fm", B=B, H=H, **launch_shapes["dv"])
+    info = lambda name, *shape: cuda_lib.launch_info(  # noqa: E731
+        getattr(lib, cuda_lib.entry(fam, name)), *shape)
+    launch_shapes = dict(ls=info("vct_linesearch_fm_info", B, len(alphas)),
+                         aos=info("vct_linesearch_aos_info", B, len(alphas)),
+                         dv=info("vct_derivs_fm_info", B, H))
+    if cuda_lib.is_kinematic(fam):
+        launch_shapes.update(bw=info("vct_backward_fm_info", B), sv=info("vct_solve_fm_info", B))
+    for key, name, lead in (("ls", "linesearch_fm", dict(A=len(alphas))),
+                            ("aos", "linesearch_aos", dict(A=len(alphas))),
+                            ("dv", "derivs_fm", dict(H=H)), ("bw", "backward_fm", {}),
+                            ("sv", "solve_fm", {})):
+        if key in launch_shapes:
+            phase(f"{label}:launch:{name}", B=B, **lead, **launch_shapes[key])
 
     # kernel 4 against its plain version (no rho: a direct check)
     dv_args = (X, U, lam, mu, curv, ds)
@@ -1027,7 +1123,7 @@ def run_family(label, env):
         lanes, SolveKernelFM(fam, well), lambda *a: solve_plain(fam, well, *a), solve_errors,
         sv_args, LS_FLOOR))
     decided = lane_witness(f"{label} kernel 3 (well)", same & ~(err <= SOLVE_TOL), kern64,
-                           plain64, LS_FLOOR, shares["solve"], edge if knife else None,
+                           plain64, LS_FLOOR, shares["solve"], edge if "solve" in copy_gates else None,
                            total=int(same.sum()), err=err)
     rows = dict(step_same=f"{same.float().mean().item():.4f}",
                 accepted=f"{(ref[7]['first_alpha'] > 0).float().mean().item():.4f}",
@@ -1157,9 +1253,9 @@ def run_family(label, env):
     phase(f"{label}:kernel3_modes", runs=len(sv_runs), clock_samples=len(clocks),
           **clock_modes(sv_runs, clocks))
     plain_ms = dict(
-        ls=cuda_ms(lambda: linesearch_costs_plain(fam, alphas, *ls_args), PLAIN_REPS),
-        bw=cuda_ms(lambda: backward_plain(fam, *bw_args), PLAIN_REPS),
-        dv=cuda_ms(lambda: derivs_plain(fam, *dv_args), PLAIN_REPS),
+        ls=cuda_ms(lambda: linesearch_costs_plain(fam, alphas, *ls_args), PLAIN_REPS, warm=False),
+        bw=cuda_ms(lambda: backward_plain(fam, *bw_args), PLAIN_REPS, warm=False),
+        dv=cuda_ms(lambda: derivs_plain(fam, *dv_args), PLAIN_REPS, warm=False),
         sv=sv_plain_ms,
     )
     plain_ms["aos"] = plain_ms["ls"]
@@ -1234,16 +1330,15 @@ def plain_solve_cpu(root, label, cfg, dtype_name, inputs):
     ``inputs`` (numpy): its outputs as numpy arrays (the trace's first_alpha
     and inner_runs last).  Runs in a process of its own (``start_cpu_solves``)."""
     torch.set_num_threads(1)
-    from vehicle_control_tpu_torch.controllers.mpc import problems
     from vehicle_control_tpu_torch.environment.track import Track
     from vehicle_control_tpu_torch.solvers.solve_kernel_fm import solve_plain
     from vehicle_control_tpu_torch.utils.config import load_config
 
     dtype = getattr(torch, dtype_name)
-    ctrl, tail = family_ctrl(label, root)
-    prob = problems.build_cascaded_problem(
-        load_config(f"{root}/configs/models/dynamic_car.yaml"),
-        Track(load_config(f"{root}/configs/environment/ippodromo.yaml")), ctrl, tail, dtype, "cpu")
+    car = "kinematic_car" if FAMILIES[label][1] == "kinematic" else "dynamic_car"
+    prob = build_problem(label, load_config(f"{root}/configs/models/{car}.yaml"),
+                         Track(load_config(f"{root}/configs/environment/ippodromo.yaml")), dtype,
+                         "cpu", root)
     out = solve_plain(prob.family, cfg, *(torch.as_tensor(a).to(dtype) for a in inputs), trace=True)
     return [o.numpy() for o in out[:7]] + [out[7][k].numpy() for k in ("first_alpha", "inner_runs")]
 
@@ -1256,6 +1351,7 @@ def start_cpu_solves(root, label, cfg, inputs, lanes):
     from concurrent.futures import ProcessPoolExecutor
 
     pool = ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    lanes = min(lanes, inputs[0].shape[0])
     host = [t[:lanes].cpu().numpy() for t in inputs]
     cuts = np.linspace(0, lanes, CPU_WORKERS + 1).astype(int)
     return pool, [pool.submit(plain_solve_cpu, root, label, cfg, "float64",
@@ -1282,7 +1378,9 @@ def lanes_of(out, lanes):
 def plain_first_action(car, track_cfg, ctrl, cfg, dtype_name, inputs):
     """The plain whole solve (``solve_plain``) of one scenario on the CPU in
     ``dtype_name``: (its first action in physical units, its violation,
-    seconds).  Runs in a process of its own (``simulator_kernel3_vs_plain``)."""
+    seconds).  The simulator's controller: the cascade (``horizon_pm`` in
+    its config) or the kinematic family.  Runs in a process of its own
+    (``simulator_kernel3_vs_plain``)."""
     torch.set_num_threads(1)
     from vehicle_control_tpu_torch.controllers.mpc import problems
     from vehicle_control_tpu_torch.environment.track import Track
@@ -1290,8 +1388,9 @@ def plain_first_action(car, track_cfg, ctrl, cfg, dtype_name, inputs):
     from vehicle_control_tpu_torch.utils.config import ConfigDict
 
     dtype = getattr(torch, dtype_name)
-    prob = problems.build_cascaded_problem(ConfigDict(car), Track(ConfigDict(track_cfg)),
-                                           ConfigDict(ctrl), "pm", dtype, "cpu")
+    args = (ConfigDict(car), Track(ConfigDict(track_cfg)), ConfigDict(ctrl))
+    prob = (problems.build_cascaded_problem(*args, "pm", dtype, "cpu") if "horizon_pm" in ctrl
+            else problems.build_kinematic_problem(*args, dtype, "cpu"))
     t0 = time.perf_counter()
     out = solve_plain(prob.family, cfg, *(torch.as_tensor(a).to(dtype) for a in inputs))
     return ((out[1][0, 0] * prob.u_scale[0]).double().numpy(), float(out[4][0]),
@@ -1303,23 +1402,29 @@ def same_arrays(a, b):
     return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
-def simulator_lap(env):
+def simulator_lap(env, kinematic=False):
     """[simulator:cascaded_lap]: the simconfig's lap through RacingSimulator
-    on the card; returns the simulator, its controller's name, the
+    on the card, or with ``kinematic`` [simulator:kinematic_lap]: the
+    simconfig with the kinematic controller through KinematicRacingSimulator
+    (the kinematic car); returns the simulator, its controller's name, the
     snapshots (step -> (state, carry)) of SNAP_STEPS and the lap's numbers
     for the kernels line."""
     from vehicle_control_tpu_torch.controllers.mpc.controllers import MPCCarry
-    from vehicle_control_tpu_torch.simulation import RacingSimulator
+    from vehicle_control_tpu_torch.simulation import KinematicRacingSimulator, RacingSimulator
     from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM
     from vehicle_control_tpu_torch.utils.config import load_config
     from vehicle_control_tpu_torch.utils.profiling import StepTimer
 
     root = env["root"]
+    tag, ref_s = ("kinematic", KIN_LAP_REF_S) if kinematic else ("cascaded", LAP_REF_S)
     simcfg = load_config(f"{root}/configs/simconfig.yaml")
     simcfg.update(save_data=False, logging=False,
                   output_dir=os.path.join(root, "build", "simulator"))
+    if kinematic:
+        simcfg["controller_names"] = ["kinematic"]
     track_cfg = load_config(f"{root}/configs/environment/{simcfg['track_name']}.yaml")
-    sim = RacingSimulator(simcfg, env["car"], track_cfg)
+    sim = (KinematicRacingSimulator(simcfg, env["kin_car"], track_cfg) if kinematic
+           else RacingSimulator(simcfg, env["car"], track_cfg))
     (name,) = sim.entries
     entry = sim.entries[name]
     kernels = entry.run_chunk.kernels
@@ -1368,7 +1473,7 @@ def simulator_lap(env):
               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     solve_ms = sum(e.device_time_total for e in events if "solve_fm" in e.key) / 1e3
-    phase("simulator:profile", step_ms_profiled=f"{prof_ms:.2f}", device_busy_ms=f"{busy_ms:.3f}",
+    phase("simulator:kinematic_profile" if kinematic else "simulator:profile", step_ms_profiled=f"{prof_ms:.2f}", device_busy_ms=f"{busy_ms:.3f}",
           kernel3_ms=f"{solve_ms:.3f}", other_device_ms=f"{busy_ms - solve_ms:.3f}",
           device_launches=sum(e.count for e in events),
           busy_share=f"{busy_ms / prof_ms:.4f}")
@@ -1378,15 +1483,15 @@ def simulator_lap(env):
     timer = StepTimer()
     timer.times = list(sim.elapsed[name])  # per-step chunk means
     steps_ms = timer.summary()
-    path = sim.save(os.path.join(root, "build", "simulator", "lap"))
+    path = sim.save(os.path.join(root, "build", "simulator", f"{tag}_lap"))
     saved = {k: getattr(sim, k)[name].copy() for k in ("state_traj", "action_traj", "elapsed")}
     preds = sim._global_preds(name)
     sim.load(path)
     reloaded = all(same_arrays(getattr(sim, k)[name], v) for k, v in saved.items()) and \
         same_arrays(np.load(os.path.join(path, f"{name}_preds.npy")), preds)
-    phase("simulator:cascaded_lap", controller=name, track=sim.track.name,
+    phase(f"simulator:{tag}_lap", controller=name, track=sim.track.name,
           dtype=str(sim.dtype).removeprefix("torch."), chunk=LAP_CHUNK,
-          lap_completed=entry.done, lap_time_s=f"{lap_time:.4f}", ref_lap_time_s=LAP_REF_S,
+          lap_completed=entry.done, lap_time_s=f"{lap_time:.4f}", ref_lap_time_s=ref_s,
           lap_steps=len(st), steps_run=entry.steps, kernel3_launches=launches,
           median_step_ms=f"{steps_ms['p50_ms']:.2f}", p95_step_ms=f"{steps_ms['p95_ms']:.2f}",
           mean_step_ms=f"{steps_ms['mean_ms']:.2f}", lap_wall_s=f"{lap_s:.1f}",
@@ -1394,11 +1499,11 @@ def simulator_lap(env):
           preds_finite=bool(np.isfinite(preds).all()), reloaded_bitwise=reloaded,
           sync_check_steps=SYNC_CHECK_STEPS)
     if not entry.done:
-        raise RuntimeError(f"the lap did not complete in {LAP_MAX_STEPS} steps")
-    if not abs(lap_time - LAP_REF_S) <= LAP_TOL_S:
-        raise RuntimeError(f"lap time {lap_time:.4f} s, the JAX f64 lap {LAP_REF_S} s")
+        raise RuntimeError(f"the {tag} lap did not complete in {LAP_MAX_STEPS} steps")
+    if not abs(lap_time - ref_s) <= LAP_TOL_S:
+        raise RuntimeError(f"{tag} lap time {lap_time:.4f} s, the JAX f64 lap {ref_s} s")
     if not viol.max() <= LAP_VIOL_MAX:
-        raise RuntimeError(f"max violation {viol.max():.3e} > {LAP_VIOL_MAX}")
+        raise RuntimeError(f"{tag} lap: max violation {viol.max():.3e} > {LAP_VIOL_MAX}")
     if launches != entry.steps:
         raise RuntimeError(f"kernel 3 launched {launches} times in {entry.steps} steps")
     if not reloaded or not np.isfinite(preds).all():
@@ -1408,17 +1513,19 @@ def simulator_lap(env):
                                   p95_step_ms=steps_ms["p95_ms"])
 
 
-def simulator_kernel3_vs_plain(env, laps, lane_ops):
+def simulator_kernel3_vs_plain(env, laps):
     """Kernel 3 at B=1 at the simulator's budget on the inputs of lap steps,
     beside the plain whole solve in f32 and f64 on the CPU (one process
     each, all at once).  ``laps``: phase label -> (simulator, controller
-    name, snapshots step -> (state, carry)); [simulator:kernel3_vs_plain]
-    (the obstacle-free lap's SNAP_STEPS, with kernel 3's B=1 launch time
-    (CUDA events) and bound; the first action held to ACTION_TOL) and
+    name, snapshots step -> (state, carry), the family's per-lane operation
+    counts for the B=1 bound or None); [simulator:kernel3_vs_plain] (the
+    obstacle-free lap's SNAP_STEPS) and [simulator:kinematic_vs_plain] (the
+    kinematic lap's), each with kernel 3's B=1 launch time (CUDA events)
+    and bound, the first action held to ACTION_TOL; and
     [simulator:obstacles_worst_step] (the obstacle lap's step of its largest
     violation: the actions printed, the violations for
-    ``obstacle_violation_gate``).  Returns the first label's numbers for the
-    kernels line and every label's."""
+    ``obstacle_violation_gate``).  Returns each label's numbers for the
+    kernels line (those with operation counts) and every label's rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1426,11 +1533,11 @@ def simulator_kernel3_vs_plain(env, laps, lane_ops):
     from vehicle_control_tpu_torch.solvers import cuda_lib
     from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM
 
-    workers = 2 * sum(len(snaps) for _, _, snaps in laps.values())
+    workers = 2 * sum(len(snaps) for _, _, snaps, _ in laps.values())
     out = {}
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
         jobs, setup = {}, {}
-        for label, (sim, name, snaps) in laps.items():
+        for label, (sim, name, snaps, _) in laps.items():
             entry = sim.entries[name]
             prob, cfg = entry.problem, controller_solver_config(entry.config)
             track_cfg = load_track_config(env["root"], sim.track.name)
@@ -1442,14 +1549,14 @@ def simulator_kernel3_vs_plain(env, laps, lane_ops):
                 host = [t.cpu().numpy() for t in inputs[k]]
                 for dtype in ("float32", "float64"):
                     jobs[label, k, dtype] = pool.submit(
-                        plain_first_action, env["car"].to_dict(), track_cfg,
+                        plain_first_action, sim.car_config.to_dict(), track_cfg,
                         entry.config.to_dict(), cfg, dtype, host)
             setup[label] = (sim, name, prob, cfg, inputs)
         for label, (sim, name, prob, cfg, inputs) in setup.items():
             kern = SolveKernelFM(prob.family, cfg)  # its own count: these launches compare only
             scale = np.maximum(np.sqrt((sim.action_traj[name].astype(np.float64) ** 2).mean(0)),
                                1e-12)
-            rows, errs, kms, runs, viols = {}, [], [], [], {}
+            rows, errs, kms, runs, viols, action_errs = {}, [], [], [], {}, []
             for k, ins in inputs.items():
                 got = kern(*ins, trace=True)
                 a_k = (got[1][0, 0] * prob.u_scale[0]).double().cpu().numpy()
@@ -1468,34 +1575,52 @@ def simulator_kernel3_vs_plain(env, laps, lane_ops):
                                     f"violation:{v_k:.4g}/{v_p:.4g}/{v_64:.4g},"
                                     f"inner_runs:{runs[-1]},kernel_ms:{kms[-1]:.3f},"
                                     f"plain_cpu_s:{s_p:.1f}/{s_64:.1f},pass:{ok}")
-                if not ok and label == next(iter(laps)):
+                action_errs.append((e_k, e_p, ok))
+                if not ok and laps[label][3] is not None and label not in LAP_SHARES:
                     raise RuntimeError(f"{label} step {k}: kernel 3's first action {a_k} is "
                                        f"{e_k:.3e} from f64's {a_64} (plain f32 {a_p}: {e_p:.3e})")
+            if label in LAP_SHARES:
+                rows["witness"] = action_witness(label, action_errs)
             out[label] = dict(prob=prob, cfg=cfg, inputs=inputs, rows=rows, errs=errs, kms=kms,
                               runs=runs, viols=viols, scale=scale)
-    # kernel 3's bound at B=1: the cascade family's per-lane counts by the
-    # inner iterations these lanes ran (``run_family``'s bounds)
-    first = next(iter(laps))
-    r = out[first]
-    prob, cfg = r["prob"], r["cfg"]
-    A, f4 = cfg.n_alpha, 4
-    loops = cfg.n_outer + (1 if cfg.n_polish else 0)
-    sweeps = 1 + loops + cfg.n_outer + 1
-    fam = prob.family
-    ops = statistics.median(r["runs"]) * (lane_ops["backward"] + (A + 1) * lane_ops["candidate"]) \
-        + sweeps * lane_ops["candidate"]
-    b_ms, b_by = bound(nbytes(*r["inputs"][0]) + f4 * (fam.H * (fam.NZ + fam.NU + fam.NC)
-                                                       + cuda_lib.SOLVE_STATS), ops)
-    ms = statistics.median(r["kms"])
-    phase(f"simulator:{first}", B=1, A=A, budget=f"{cfg.n_outer}x{cfg.n_inner}",
-          mu0=cfg.mu0, scale="/".join(f"{v:.6g}" for v in r["scale"]), tol=ACTION_TOL,
-          floor=ACTION_FLOOR, kernel_ms_b1=f"{ms:.3f}", bound_ms_b1=f"{b_ms:.6f}({b_by})",
-          **r["rows"])
-    for label in list(laps)[1:]:
-        phase(f"simulator:{label}", B=1, tol=ACTION_TOL, floor=ACTION_FLOOR,
-              viol_max=LAP_VIOL_MAX, **out[label]["rows"])
-    return dict(B=1, ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=max(r["errs"]),
-                inner_runs=r["runs"]), out
+    # kernel 3's bound at B=1: the family's per-lane counts by the inner
+    # iterations these lanes ran (``run_family``'s bounds)
+    numbers = {}
+    for label, (_, _, _, lane_ops) in laps.items():
+        r = out[label]
+        if lane_ops is None:
+            phase(f"simulator:{label}", B=1, tol=ACTION_TOL, floor=ACTION_FLOOR,
+                  viol_max=LAP_VIOL_MAX, **r["rows"])
+            continue
+        prob, cfg = r["prob"], r["cfg"]
+        A, f4 = cfg.n_alpha, 4
+        loops = cfg.n_outer + (1 if cfg.n_polish else 0)
+        sweeps = 1 + loops + cfg.n_outer + 1
+        fam = prob.family
+        ops = statistics.median(r["runs"]) * (lane_ops["backward"]
+                                              + (A + 1) * lane_ops["candidate"]) \
+            + sweeps * lane_ops["candidate"]
+        b_ms, b_by = bound(nbytes(*r["inputs"][0]) + f4 * (fam.H * (fam.NZ + fam.NU + fam.NC)
+                                                           + cuda_lib.SOLVE_STATS), ops)
+        ms = statistics.median(r["kms"])
+        phase(f"simulator:{label}", B=1, A=A, budget=f"{cfg.n_outer}x{cfg.n_inner}",
+              mu0=cfg.mu0, scale="/".join(f"{v:.6g}" for v in r["scale"]), tol=ACTION_TOL,
+              floor=ACTION_FLOOR, kernel_ms_b1=f"{ms:.3f}", bound_ms_b1=f"{b_ms:.6f}({b_by})",
+              **r["rows"])
+        numbers[label] = dict(B=1, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                              max_abs_err=max(r["errs"]), inner_runs=r["runs"])
+    return numbers, out
+
+
+def action_witness(label, action_errs):
+    """LAP_SHARES' rule for a lap's first actions: ``action_errs`` is each
+    compared step's (kernel 3's error against f64, the plain f32 version's,
+    whether it met ACTION_TOL or the plain's error plus ACTION_FLOOR); the
+    steps that did not meet it go to ``lane_witness``.  Returns its text;
+    raises as it does."""
+    kern, plain, ok = (torch.tensor(v) for v in zip(*action_errs))
+    return lane_witness(f"{label} first actions", ~ok, kern.double(), plain.double(),
+                        ACTION_FLOOR, LAP_SHARES[label])
 
 
 def disc_passes(states, discs):
@@ -1634,16 +1759,22 @@ def print_ptxas(lib_path):
 
 
 def make_env(dev):
-    """The car, the track and the plant step the families share."""
+    """The cars, the track and the plant steps the families share: the
+    dynamic car's (``car``, ``transition``) and the kinematic car's
+    (``kin_car``, ``kin_transition``)."""
     from vehicle_control_tpu_torch.environment.track import Track
     from vehicle_control_tpu_torch.models import dynamic_car as dc
+    from vehicle_control_tpu_torch.models import kinematic_car as kc
     from vehicle_control_tpu_torch.utils.config import load_config, project_root
 
     root = project_root()
     car = load_config(f"{root}/configs/models/dynamic_car.yaml")
+    kin_car = load_config(f"{root}/configs/models/kinematic_car.yaml")
     track = Track(load_config(f"{root}/configs/environment/ippodromo.yaml"))
     return dict(dev=dev, root=root, car=car, track=track,
                 transition=dc.make_transitions(dc.DynamicCarParams.from_config(car))[0],
+                kin_car=kin_car,
+                kin_transition=kc.make_transitions(kc.KinematicCarParams.from_config(kin_car))[0],
                 tdata=track.data.to(dev, torch.float32))
 
 
@@ -1684,10 +1815,12 @@ def main() -> int:
     t_sim = time.perf_counter()
     sim, sim_name, snaps, lap = simulator_lap(env)
     obs_sim, obs_name, obs_snaps, obs_lap = simulator_obstacles_lap(env)
-    sim_b1, compared = simulator_kernel3_vs_plain(
-        env, {"kernel3_vs_plain": (sim, sim_name, snaps),
-              "obstacles_worst_step": (obs_sim, obs_name, obs_snaps)},
-        results["cascaded"]["sv"]["lane_ops"])
+    kin_sim, kin_name, kin_snaps, kin_lap = simulator_lap(env, kinematic=True)
+    b1, compared = simulator_kernel3_vs_plain(
+        env, {"kernel3_vs_plain": (sim, sim_name, snaps, results["cascaded"]["sv"]["lane_ops"]),
+              "obstacles_worst_step": (obs_sim, obs_name, obs_snaps, None),
+              "kinematic_vs_plain": (kin_sim, kin_name, kin_snaps,
+                                     results["kinematic"]["sv"]["lane_ops"])})
     worst = compared["obstacles_worst_step"]["viols"]
     obs_lap["worst_step_violation"] = {k: dict(kernel=v[0], plain_f32=v[1], f64=v[2])
                                        for k, v in worst.items()}
@@ -1712,13 +1845,16 @@ def main() -> int:
         row("dv", "derivs_fm", "derivs_fm.cu", "derivs_kernel_fm.py:43"),
         row("aos", "linesearch_aos", "rollout_aos.cu", "rollout_kernel.py:63"),
     ]
-    # the simulator's laps are kernel 3's other paths: their launches join the count
-    kernels[2]["launches"] += lap["launches"] + obs_lap["launches"]
-    kernels[2]["simulator_lap"] = dict(lap, **sim_b1)
+    # the simulator's laps are kernel 3's other paths: their launches join the
+    # count (the kinematic lap's the kinematic family's too)
+    kernels[2]["launches"] += lap["launches"] + obs_lap["launches"] + kin_lap["launches"]
+    kernels[2]["per_family"]["kinematic"]["launches"] += kin_lap["launches"]
+    kernels[2]["simulator_lap"] = dict(lap, **b1["kernel3_vs_plain"])
     kernels[2]["simulator_obstacles_lap"] = obs_lap
-    # kernel 5 sits on no route; every other kernel must have run on its path
-    if any(k["launches"] < 1 for k in kernels if k["name"] != "linesearch_aos"):
-        raise RuntimeError(f"a kernel was never launched on its path: {kernels}")
+    kernels[2]["simulator_kinematic_lap"] = dict(kin_lap, **b1["kinematic_vs_plain"])
+    missing = unlaunched(kernels)
+    if missing:
+        raise RuntimeError(f"a kernel was never launched on its path: {missing}")
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

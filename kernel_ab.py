@@ -12,8 +12,10 @@ f32 and all instructions of kernels 2-4, a static count over every stage
 kind's code).
 
 Then, for the families of ``chip_smoke.py`` (``--families``: the
-single-track family, the cascade and the cascade with obstacles) at its
-shapes and budgets, on the same warm-started inputs
+single-track family, the cascade, the cascade with obstacles and the
+kinematic family, on each build's instantiation for the family; a build
+from before that instantiation existed sits the family out) at its shapes
+and budgets, on the same warm-started inputs
 (``chip_smoke.warm_inputs``, computed by no kernel), it times one launch of
 each build's kernels with CUDA events: 3 (the whole solve, the main path's
 budget), 2 (the backward pass at the solver's rho0), 4 (the stage
@@ -104,14 +106,15 @@ def build_all(baselines, variants):
 
 
 def load(path, kernels):
-    """A build's library with its kernels' entries (and launch-shape entries
-    where it has them) declared."""
+    """A build's library with its kernels' entries (and launch-shape entries,
+    and the kinematic family's entries, where it has them) declared."""
     from vehicle_control_tpu_torch.solvers import cuda_lib
 
     lib = ctypes.CDLL(path)
-    names = [KERNELS[k][0] for k in kernels]
-    names += [KERNELS[k][2] for k in kernels if KERNELS[k][2] and hasattr(lib, KERNELS[k][2])]
-    return cuda_lib.declare(lib, names)
+    entries = [KERNELS[k][0] for k in kernels]
+    infos = [KERNELS[k][2] for k in kernels if KERNELS[k][2]]
+    kin = [cuda_lib.kin_entry(n) for n in entries + infos]
+    return cuda_lib.declare(lib, entries + [n for n in infos + kin if hasattr(lib, n)])
 
 
 # the SASS opcodes counted as f32 operations (the FP32 pipe and the special
@@ -134,6 +137,7 @@ def sass_counts(lib_path):
         name = block.split("\n", 1)[0].strip()
         for key in SASS_KERNELS:
             if key in name:
+                key += "_kin" if "KinParams" in name else ""  # the kinematic instantiation
                 ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
                                  block)
                 f32 = sum(1 for o in ops if o.split(".")[0] in F32_OPS)
@@ -187,7 +191,8 @@ def backward_gates(fam, w, rho0, libs, params, stream):
         for cond, rho in rhos.items():
             ins = [cuda_lib.soa(t) for t in base + (rho, w["curv"], w["ds"])]
             out = [torch.empty(s, **f32) for s in ((H, NU, B), (H, NU, NZ, B), (2, B), (B,))]
-            ccall(lib, "vct_backward_fm", params.ctypes.data, *ptrs(ins + out), B, H, stream)
+            ccall(lib, cuda_lib.entry(fam, "vct_backward_fm"), params.ctypes.data,
+                  *ptrs(ins + out), B, H, stream)
             torch.cuda.synchronize()
             got = (out[0].movedim(-1, 0), out[1].movedim(-1, 0), out[2][0], out[2][1],
                    out[3] > 0.5)
@@ -206,7 +211,7 @@ def run_family(label, env, libs, reps):
 
     problem, budget, cfg, _, shape = chip_smoke.family_problem(label, env)
     fam, H, dev = problem.family, problem.family.H, env["dev"]
-    w = chip_smoke.warm_inputs(problem, cfg, env)
+    w = chip_smoke.warm_inputs(label, problem, cfg, env)
     B, NZ, NU, NC = chip_smoke.B, fam.NZ, fam.NU, fam.NC
     NW, A = NZ + NU, len(cfg.alphas())
     params, scfg = cuda_lib.family_params(fam), cuda_lib.solve_config(cfg)
@@ -226,8 +231,11 @@ def run_family(label, env, libs, reps):
         ls_in[cond] = [cuda_lib.soa(t) for t in ins]
         aos_in[cond] = [t.contiguous() for t in ins]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = {k: cuda_lib.entry(fam, v[0]) for k, v in KERNELS.items()}  # the family's entries
     outs, calls = {}, {}
     for name, (lib, kernels) in libs.items():
+        # a build from before the family's instantiation existed has no entry for it
+        kernels = tuple(k for k in kernels if hasattr(lib, entry[k]))
         o = outs[name] = dict(
             solve=[torch.empty(s, **f32) for s in ((H, NZ, B), (H, NU, B), (H, NC, B),
                                                   (H, NU, B), (H, NU, NZ, B),
@@ -239,17 +247,17 @@ def run_family(label, env, libs, reps):
 
         table = dict(
             solve=lambda config=scfg, o=o, lib=lib: ccall(
-                lib, "vct_solve_fm", params.ctypes.data, ctypes.addressof(config),
+                lib, entry["solve"], params.ctypes.data, ctypes.addressof(config),
                 *ptrs(sv_in + o["solve"]), B, H, stream),
-            backward=lambda o=o, lib=lib: ccall(lib, "vct_backward_fm", params.ctypes.data,
+            backward=lambda o=o, lib=lib: ccall(lib, entry["backward"], params.ctypes.data,
                                                 *ptrs(bw_in + o["backward"]), B, H, stream),
-            derivs=lambda o=o, lib=lib: ccall(lib, "vct_derivs_fm", params.ctypes.data,
+            derivs=lambda o=o, lib=lib: ccall(lib, entry["derivs"], params.ctypes.data,
                                               *ptrs(dv_in + o["derivs"]), B, H, stream),
             linesearch=lambda cond="rho0", o=o, lib=lib: ccall(
-                lib, "vct_linesearch_fm", params.ctypes.data, alphas.ctypes.data, A,
+                lib, entry["linesearch"], params.ctypes.data, alphas.ctypes.data, A,
                 *ptrs(ls_in[cond] + [o["linesearch"][cond]]), B, H, stream),
             aos=lambda cond="rho0", o=o, lib=lib: ccall(
-                lib, "vct_linesearch_aos", params.ctypes.data, alphas.ctypes.data, A,
+                lib, entry["aos"], params.ctypes.data, alphas.ctypes.data, A,
                 *ptrs(aos_in[cond] + [o["aos"][cond]]), B, H, stream),
         )
         calls[name] = {k: table[k] for k in kernels}
@@ -296,7 +304,7 @@ def run_family(label, env, libs, reps):
             well_X_max=chip_smoke.lane_errors(X[same], ref[0][same]).max().item(),
             well_U_max=chip_smoke.lane_errors(U[same], ref[1][same]).max().item(),
             well_U_worst=chip_smoke.worst_entry(U[same], ref[1][same]))
-        ccall(libs[n][0], "vct_solve_fm", params.ctypes.data, ctypes.addressof(scfg),
+        ccall(libs[n][0], entry["solve"], params.ctypes.data, ctypes.addressof(scfg),
               *ptrs(first_in + o), B, H, stream)
         torch.cuda.synchronize()
         st = o[5]
@@ -308,7 +316,8 @@ def run_family(label, env, libs, reps):
                             cold_cost_median_vs_f64=rows["cost_median_vs_f64"])
         calls[n]["solve"]()  # the main path's budget again, for the comparisons below
     torch.cuda.synchronize()
-    bw_rows = backward_gates(fam, w, rho0, libs, params, stream)
+    bw_rows = backward_gates(fam, w, rho0, {n: (libs[n][0], tuple(calls[n])) for n in names},
+                             params, stream)
     res, port = {}, outs["port"]
     for n in names:
         o, row = outs[n], {}

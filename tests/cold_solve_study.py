@@ -119,7 +119,8 @@ def jax_solves(label, problem, cfg, env, ins):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--family", default="singletrack", choices=list(chip_smoke.FAMILIES))
+    ap.add_argument("--family", default="singletrack",
+                    choices=[f for f, v in chip_smoke.FAMILIES.items() if v[1] != "kinematic"])
     ap.add_argument("--lanes", type=int, default=256)
     ap.add_argument("--no-jax", action="store_true")
     args = ap.parse_args()

@@ -106,7 +106,8 @@ def host_derivs_plain_riccati(fam, args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--family", default="singletrack", choices=list(chip_smoke.FAMILIES))
+    ap.add_argument("--family", default="singletrack",
+                    choices=[f for f, v in chip_smoke.FAMILIES.items() if v[1] != "kinematic"])
     ap.add_argument("--lanes", type=int, default=512)
     args = ap.parse_args()
     torch.set_num_threads(4)

@@ -13,7 +13,11 @@ lane that kernels 2 or 4 decide on a knife edge (``f64_copies_side``).  And
 check (ii)'s gates on the whole solve, both f32 versions against f64
 (``solve_gates``), and kernel 2's gates (``backward_gates``, which
 ``kernel_ab.py`` shares), and the obstacle lap's sides (``disc_passes``) and
-its violation gate (``obstacle_violation_gate``).
+its violation gate (``obstacle_violation_gate``).  And the kinematic
+family's set-up (``family_model``, ``build_problem``: its car, plant, drops'
+width and bench.py's budget) and the check that every kernel but 5 was
+launched on its path, in each family that drives the earlier routes
+(``unlaunched``).
 """
 
 import math
@@ -368,3 +372,70 @@ def test_obstacle_violation_gate(viols, missed):
             chip_smoke.obstacle_violation_gate(lap, viols)
     else:
         chip_smoke.obstacle_violation_gate(lap, viols)
+
+
+def test_kinematic_family_setup():
+    """The kinematic family: bench.py's budget (2 x 3, 6 steps, mu0 = 10),
+    kinematic.yaml as shipped (N=50, obstacles on), the kinematic car's
+    plant (s at field 2 of 6), the earlier routes driven."""
+    env = chip_smoke.make_env(torch.device("cpu"))
+    ctrl_yaml, tail, overrides, budget = chip_smoke.FAMILIES["kinematic"]
+    assert (ctrl_yaml, tail, overrides) == ("kinematic.yaml", "kinematic", dict(obstacles=True))
+    assert budget == dict(n_outer=2, n_inner=3, n_alpha=6, mu0=10.0)
+    assert "kinematic" in chip_smoke.SIDE_ROUTES
+    # its knife-edge shares (the obstacle cascade's stay as they were)
+    assert chip_smoke.FAMILY_SHARES["kinematic"] == dict(rtol=chip_smoke.WITNESS_SHARE,
+                                                         kernel2=1e-2, solve=1e-1)
+    assert chip_smoke.FAMILY_SHARES["cascaded_obstacles"] == dict(
+        rtol=chip_smoke.WITNESS_SHARE, kernel2=1e-2, kernel4=1e-2, solve=5e-2)
+    assert chip_smoke.FAMILY_COPIES == {"cascaded_obstacles": ("solve",),
+                                        "kinematic": ("solve", "kernel2")}
+    car, transition, s_index, ns = chip_smoke.family_model("kinematic", env)
+    assert car is env["kin_car"] and transition is env["kin_transition"] and (s_index, ns) == (2, 6)
+    assert chip_smoke.family_model("cascaded", env)[2:] == (4, 8)
+    prob = chip_smoke.build_problem("kinematic", car, env["track"], torch.float32, "cpu",
+                                    env["root"])
+    fam = prob.family
+    assert (fam.tail, fam.N, fam.H, fam.NZ, len(fam.obstacles)) == ("kinematic", 50, 51, 8, 7)
+    state = torch.zeros(1, 6)
+    state[0, 0], state[0, 2] = 5.0, 10.0
+    nxt = transition(state, torch.zeros(1, 2), torch.zeros(1), chip_smoke.DT)
+    assert nxt[0, 2].item() == pytest.approx(10.25)  # s + v dt on the straight
+
+
+def _kernels_line(launches):
+    """A kernels line's launch counts: {kernel: {family: launches}}."""
+    return [dict(name=name, launches=sum(per.values()),
+                 per_family={f: dict(launches=n) for f, n in per.items()})
+            for name, per in launches.items()]
+
+
+def test_unlaunched_kernels():
+    """Kernel 5 may stay unlaunched; kernels 1, 2 and 4 must run in every
+    family that drives the earlier routes, kernel 3 in every family."""
+    ok = {"linesearch_fm": dict(singletrack=13, cascaded=0, kinematic=6),
+          "backward_fm": dict(singletrack=13, cascaded=0, kinematic=6),
+          "solve_fm": dict(singletrack=40, cascaded=40, kinematic=415),
+          "derivs_fm": dict(singletrack=13, cascaded=0, kinematic=6),
+          "linesearch_aos": dict(singletrack=0, cascaded=0, kinematic=0)}
+    assert chip_smoke.unlaunched(_kernels_line(ok)) == []
+    bad = dict(ok, derivs_fm=dict(singletrack=13, cascaded=0, kinematic=0),
+               solve_fm=dict(singletrack=40, cascaded=0, kinematic=415))
+    assert chip_smoke.unlaunched(_kernels_line(bad)) == [("solve_fm", "cascaded"),
+                                                         ("derivs_fm", "kinematic")]
+
+
+def test_kinematic_lap_action_witness():
+    """The kinematic lap's first actions: a step beyond ACTION_TOL and the
+    plain f32 version's error passes where its error against f64 is at
+    most 4x the plain's (one step of SNAP_STEPS at most); the cascade lap
+    has no such rule."""
+    label = "kinematic_vs_plain"
+    assert "kernel3_vs_plain" not in chip_smoke.LAP_SHARES
+    steps = [(1e-5, 2e-5, True), (2e-4, 1e-4, True), (1.349e-1, 1.247e-1, False)]
+    assert chip_smoke.action_witness(label, steps).startswith("1|")
+    assert chip_smoke.action_witness(label, steps[:2]) == "0"
+    with pytest.raises(RuntimeError, match="sides with the plain version"):
+        chip_smoke.action_witness(label, steps[:2] + [(0.6, 0.1, False)])
+    with pytest.raises(RuntimeError, match="decided by the witness"):
+        chip_smoke.action_witness(label, [(0.2, 0.1, False), (0.2, 0.1, False), (0.0, 0.0, True)])

@@ -11,7 +11,9 @@ with random multipliers and gains.  They are made in float64 on the CPU and
 handed to both versions as float32 on the card.
 
 The single-track family runs at H=8, the point-mass cascade (tail="pm") at
-N=4 + M=4, with and without ippodromo's obstacles (for the barrier, drops
+N=4 + M=4, with and without ippodromo's obstacles, and the kinematic family
+(N=7, H=8, obstacles on: the kernels' instantiation for its own parameter
+block) (for the barrier, drops
 2-15 m before a disc, within 1.5 m of its ey; lanes whose Riccati step is
 not PD there carry non-finite gains in both versions and are compared by
 their flags).  Tolerances: with rho = 1 the Riccati step is well conditioned,
@@ -73,12 +75,16 @@ def _config(rel):
 
 
 def _problem(device="cpu", dtype=torch.float64, tail="none", obstacles=False):
+    track = Track(_config("environment/ippodromo.yaml"))
+    if tail == "kinematic":  # N=7 running stages and the terminal stage
+        cfg = dict(_config("controllers/kinematic.yaml"), obstacles=obstacles, horizon=H - 1)
+        return track, problems.build_kinematic_problem(
+            _config("models/kinematic_car.yaml"), track, cfg, dtype, device)
     if tail == "pm":  # the cascade at N=4 + M=4 stages
         cfg = dict(_config("controllers/cascaded.yaml"), obstacles=obstacles, horizon=H // 2,
                    horizon_pm=H // 2)
     else:
         cfg = dict(_config("controllers/singletrack.yaml"), obstacles=False, horizon=H)
-    track = Track(_config("environment/ippodromo.yaml"))
     return track, problems.build_cascaded_problem(
         _config("models/dynamic_car.yaml"), track, cfg, tail, dtype, device
     )
@@ -94,23 +100,28 @@ def cuda():
 def _inputs(cuda, tail, obstacles=False):
     """(family, X, U, lam, mu, rho, curv, ds, z0, kff, Kfb) as f32 on the card."""
     track, prob = _problem(tail=tail, obstacles=obstacles)
+    kin = tail == "kinematic"
+    ns, i_s = (6, 2) if kin else (8, 4)
     rng = np.random.default_rng(0)
-    states = initial_states(track.length, B, rng)
+    states = initial_states(track.length, B, rng, ns=ns)
     if obstacles:  # 2-15 m before a disc, within 1.5 m of its ey
         disc = track.data.obstacles.numpy()[np.arange(B) % len(track.obstacles)]
-        states[:, 4] = disc[:, 2] - rng.uniform(2.0, 15.0, B)
-        states[:, 5] = disc[:, 3] + rng.uniform(-1.5, 1.5, B)
+        states[:, i_s] = disc[:, 2] - rng.uniform(2.0, 15.0, B)
+        states[:, i_s + 1] = disc[:, 3] + rng.uniform(-1.5, 1.5, B)
     states = torch.as_tensor(states)
     carry = aligned_carry(prob, states)
     params, z0 = prob.init_horizon(states, carry.X_pred, carry.U_pred)
-    U = carry.U_pred + torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.05)
+    noise = np.asarray((0.5, 0.05) if kin else (0.05, 0.05))  # (a, w) in physical units
+    U = carry.U_pred + torch.as_tensor(rng.normal(size=(B, H, 2)) * noise)
     X, _ = rollout(prob.fns, params, z0, U)
+    NZ = prob.nz
     lam = torch.as_tensor(np.abs(rng.normal(size=(B, H, 10))) * 0.1)
     kff = torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.02)
-    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, 10)) * 0.01)
+    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, NZ)) * 0.01)
     z0 = z0.clone()
-    z0[0, 1] = 1e8  # beyond the 1e7 state guard: +inf
-    z0[1, 2] = float("nan")  # a NaN start: +inf
+    f_big, f_nan = (2, 3) if kin else (1, 2)  # no clamp or stop brings them back
+    z0[0, f_big] = 1e8  # beyond the 1e7 state guard: +inf
+    z0[1, f_nan] = float("nan")  # a NaN start: +inf
     mu, rho = torch.full((B,), 10.0), torch.ones(B)
     arrays = (X, U, lam, mu, rho, params.curvature, params.ds, z0, kff, Kfb)
     return (prob.family,) + tuple(a.to(cuda, torch.float32).contiguous() for a in arrays)
@@ -129,6 +140,11 @@ def pm_inputs(cuda):
 @pytest.fixture(scope="module")
 def obs_inputs(cuda):
     return _inputs(cuda, "pm", obstacles=True)
+
+
+@pytest.fixture(scope="module")
+def kin_inputs(cuda):
+    return _inputs(cuda, "kinematic", obstacles=True)
 
 
 @pytest.mark.cuda
@@ -414,3 +430,50 @@ def test_cascade_closed_loop_routes(cuda):
         assert [k.launches for k in step.kernels] == launches, flags
         assert torch.isfinite(nxt).all() and torch.isfinite(action).all()
         assert carry.X_pred.shape == (256, H, 10) and info.converged.shape == (256,)
+
+
+@pytest.mark.cuda
+def test_kinematic_kernels_match_plain(kin_inputs):
+    """Kernels 1, 2, 4 and 5 of the kinematic family (its ``_kin``
+    instantiations) against their plain versions, with the f64 witness of
+    ``_within`` beside the discs; kernel 5 gives kernel 1's bits."""
+    _cascade_kernels_match_plain(kin_inputs, f64_witness=True)
+    fam, X, U, lam, mu, _, curv, ds, z0, kff, Kfb = kin_inputs
+    args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    got, ref = LinesearchKernelAoS(fam, ALPHAS)(*args), LinesearchKernelFM(fam, ALPHAS)(*args)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    g = DerivsKernelFM(fam)(X, U, lam, mu, curv, ds)[0]
+    assert (g[:, :fam.N, 2] != 0).float().mean() > 0.5  # the barrier's s gradient
+
+
+@pytest.mark.cuda
+def test_kinematic_solve_kernel_matches_plain(kin_inputs):
+    """Kernel 3 of the kinematic family, as on the cascade."""
+    _cascade_solve_kernel_matches_plain(kin_inputs)
+
+
+@pytest.mark.cuda
+def test_kinematic_closed_loop_routes(cuda):
+    """One f32 closed-loop step of the kinematic fleet on the card on each
+    route, the kinematic plant's Euler step."""
+    from vehicle_control_tpu_torch.models import kinematic_car as kc
+
+    track, prob = _problem(cuda, torch.float32, "kinematic", obstacles=True)
+    transition, _ = kc.make_transitions(
+        kc.KinematicCarParams.from_config(_config("models/kinematic_car.yaml")))
+    budget = dict(n_outer=2, n_inner=3, n_alpha=6)
+    per_solve = budget["n_outer"] * budget["n_inner"]
+    states = torch.as_tensor(initial_states(track.length, 256, np.random.default_rng(0),
+                                            track.data.obstacles.numpy(), ns=6),
+                             dtype=torch.float32, device=cuda)
+    routes = (({}, [per_solve, per_solve]), (dict(use_derivs_kernel=True), [per_solve, per_solve]),
+              (dict(use_solve_kernel=True), [1]))
+    for flags, launches in routes:
+        step = make_batched_racing_step(
+            prob, ALILQRConfig(**budget, **flags), transition,
+            track.data.to(cuda, torch.float32), 0.05, 2,
+        )
+        carry, nxt, action, info = step(aligned_carry(prob, states), states)
+        assert [k.launches for k in step.kernels] == launches, flags
+        assert torch.isfinite(nxt).all() and torch.isfinite(action).all()
+        assert carry.X_pred.shape == (256, H, 8) and info.converged.shape == (256,)

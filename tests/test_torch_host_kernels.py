@@ -15,11 +15,13 @@ without it.
 Inputs: bench-like drops (``initial_states``, seed 0) with their aligned
 warm starts, rolled out under perturbed controls, with random multipliers,
 made in float64 and handed to both versions in float32, at B=8 on the
-single-track family (H=6), the cascade (N=4 + M=5) and the cascade with
+single-track family (H=6), the cascade (N=4 + M=5), the cascade with
 ippodromo's obstacles (the barrier's table is a run-time parameter, so the
-same builds run it), whose drops sit 2-15 m before a disc, within 1.5 m of
-its ey, so the horizons run past and into the discs.  Lanes 0 and 1 start
-beyond the state guard and from a NaN.  Tolerances (those of
+same builds run it) and the kinematic family with them (N=6, H=7: the
+kernels' instantiation for KinParams, the ``_kin`` entries), whose drops
+sit 2-15 m before a disc, within 1.5 m of its ey, so the horizons run past
+and into the discs.  Lanes 0 and 1 start beyond the state guard and from a
+NaN.  Tolerances (those of
 ``chip_smoke.py``: float32 rounding in another order):
 - kernel 2 at rho = 1: gains and dV within BW_TOL of each lane's largest
   magnitude, PD-failure flags identical;
@@ -41,7 +43,8 @@ beyond the state guard and from a NaN.  Tolerances (those of
   the (B, H, F) layout) give the same costs bit for bit;
 - the counting build: kernels 4 and 2's outputs bit for bit, and at most
   half the operations that chip_smoke.count_ops counts on the plain
-  versions' jets.
+  versions' jets (the kinematic family's plain derivatives are closed forms
+  too: there at most the plain version's).
 """
 
 import ctypes
@@ -67,7 +70,8 @@ from vehicle_control_tpu_torch.solvers.solve_kernel_fm import solve_plain
 from vehicle_control_tpu_torch.utils.config import load_config, project_root
 
 B = 8
-HORIZONS = {"none": dict(horizon=6), "pm": dict(horizon=4, horizon_pm=5)}
+HORIZONS = {"none": dict(horizon=6), "pm": dict(horizon=4, horizon_pm=5),
+            "kinematic": dict(horizon=6)}
 BW_TOL, SOLVE_TOL, DV_TOL, LS_RTOL = 1e-3, 1e-4, 1e-4, 1e-4
 BUILDS = {"team4": (), "team8": ("-DVCT_TEAM=8",)}
 COUNT_FLAGS = ("-DVCT_COUNT_OPS",)  # the build that counts its f32 operations
@@ -102,14 +106,16 @@ def host_libs():
     libs = {}
     for name, path in _build_all(cxx).items():
         lib = ctypes.CDLL(path)
-        lib.vct_host_backward.argtypes = [P] + [P] * 11 + [I, I]
-        lib.vct_host_solve.argtypes = [P, P] + [P] * 11 + [I, I]
+        for suffix in ("", "_kin"):  # the cascaded family's entries, the kinematic family's
+            getattr(lib, "vct_host_backward" + suffix).argtypes = [P] + [P] * 11 + [I, I]
+            getattr(lib, "vct_host_solve" + suffix).argtypes = [P, P] + [P] * 11 + [I, I]
+            getattr(lib, "vct_host_derivs" + suffix).argtypes = [P] * 10 + [I, I]
+            for ls in ("vct_host_linesearch", "vct_host_linesearch_aos"):
+                getattr(lib, ls + suffix).argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         lib.vct_host_set_member_order.argtypes = [I]
-        lib.vct_host_derivs.argtypes = [P] * 10 + [I, I]
-        lib.vct_host_linesearch.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
-        lib.vct_host_linesearch_aos.argtypes = [P, P, I] + [P] * 10 + [I, I, I]
         assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
         assert lib.vct_host_param_count() == len(cuda_lib.PARAM_FIELDS)  # the table's too
+        assert lib.vct_host_kin_param_count() == len(cuda_lib.KIN_PARAM_FIELDS)
         assert lib.vct_host_team() >= 4
         if name == "count":
             lib.vct_host_ops.restype = ctypes.c_double
@@ -128,14 +134,19 @@ def kernel_lib(host_libs):
     return host_libs["team4"]
 
 
+def _entry(lib, fam, name):
+    """The host build's C entry ``name`` for the family (``cuda_lib.entry``)."""
+    return getattr(lib, cuda_lib.entry(fam, name))
+
+
 def host_backward(lib, fam, X, U, lam, mu, rho, curv, ds):
     """Kernel 2's outputs, as BackwardKernelFM returns them."""
     H = fam.H
     soas = [cuda_lib.soa(t) for t in (X, U, lam, mu, rho, curv, ds)]
-    kff, kfb = torch.empty(H, 2, B), torch.empty(H, 2, 10, B)
+    kff, kfb = torch.empty(H, 2, B), torch.empty(H, 2, fam.NZ, B)
     dv, fail = torch.empty(2, B), torch.empty(B)
     params = cuda_lib.family_params(fam)
-    rc = lib.vct_host_backward(params.ctypes.data, *[t.data_ptr() for t in soas],
+    rc = _entry(lib, fam, "vct_host_backward")(params.ctypes.data, *[t.data_ptr() for t in soas],
                                kff.data_ptr(), kfb.data_ptr(), dv.data_ptr(), fail.data_ptr(),
                                B, H)
     assert rc == 0
@@ -146,11 +157,11 @@ def host_solve(lib, fam, cfg, z0, U_init, lam_init, curv, ds):
     """Kernel 3's outputs and trace, as SolveKernelFM(trace=True) returns them."""
     H = fam.H
     soas = [cuda_lib.soa(t) for t in (z0, U_init, lam_init, curv, ds)]
-    X, U, lam = torch.empty(H, 10, B), torch.empty(H, 2, B), torch.empty(H, 10, B)
-    kff, kfb = torch.empty(H, 2, B), torch.empty(H, 2, 10, B)
+    X, U, lam = torch.empty(H, fam.NZ, B), torch.empty(H, 2, B), torch.empty(H, 10, B)
+    kff, kfb = torch.empty(H, 2, B), torch.empty(H, 2, fam.NZ, B)
     stats = torch.empty(cuda_lib.SOLVE_STATS, B)
     params, scfg = cuda_lib.family_params(fam), cuda_lib.solve_config(cfg)
-    rc = lib.vct_host_solve(params.ctypes.data, ctypes.addressof(scfg),
+    rc = _entry(lib, fam, "vct_host_solve")(params.ctypes.data, ctypes.addressof(scfg),
                             *[t.data_ptr() for t in soas], X.data_ptr(), U.data_ptr(),
                             lam.data_ptr(), kff.data_ptr(), kfb.data_ptr(), stats.data_ptr(),
                             B, H)
@@ -164,31 +175,39 @@ def _config(rel):
     return load_config(f"{project_root()}/configs/{rel}")
 
 
-@pytest.fixture(scope="module", params=["none", "pm", "pm_obstacles"])
+@pytest.fixture(scope="module", params=["none", "pm", "pm_obstacles", "kinematic_obstacles"])
 def inputs(request):
     """(family, X, U, lam, mu, rho, curv, ds, z0) in float32 on the CPU."""
     tail, _, obstacles = request.param.partition("_")
-    name = "singletrack.yaml" if tail == "none" else "cascaded.yaml"
-    cfg = dict(_config(f"controllers/{name}"), obstacles=bool(obstacles), **HORIZONS[tail])
     track = Track(_config("environment/ippodromo.yaml"))
-    prob = problems.build_cascaded_problem(_config("models/dynamic_car.yaml"), track, cfg, tail,
-                                           torch.float64, "cpu")
+    if tail == "kinematic":
+        cfg = dict(_config("controllers/kinematic.yaml"), obstacles=True, **HORIZONS[tail])
+        prob = problems.build_kinematic_problem(_config("models/kinematic_car.yaml"), track, cfg,
+                                                torch.float64, "cpu")
+        ns, i_s, u_noise = 6, 2, (0.5, 0.05)  # (a, w) in physical units
+    else:
+        name = "singletrack.yaml" if tail == "none" else "cascaded.yaml"
+        cfg = dict(_config(f"controllers/{name}"), obstacles=bool(obstacles), **HORIZONS[tail])
+        prob = problems.build_cascaded_problem(_config("models/dynamic_car.yaml"), track, cfg,
+                                               tail, torch.float64, "cpu")
+        ns, i_s, u_noise = 8, 4, (0.05, 0.05)
     H = prob.family.H
     rng = np.random.default_rng(0)
-    states = initial_states(track.length, B, rng)
+    states = initial_states(track.length, B, rng, ns=ns)
     if obstacles:  # 2-15 m before a disc, within 1.5 m of its ey
         disc = track.data.obstacles.numpy()[np.arange(B) % len(track.obstacles)]
-        states[:, 4] = disc[:, 2] - rng.uniform(2.0, 15.0, B)
-        states[:, 5] = disc[:, 3] + rng.uniform(-1.5, 1.5, B)
+        states[:, i_s] = disc[:, 2] - rng.uniform(2.0, 15.0, B)
+        states[:, i_s + 1] = disc[:, 3] + rng.uniform(-1.5, 1.5, B)
     states = torch.as_tensor(states)
     carry = aligned_carry(prob, states)
     params, z0 = prob.init_horizon(states, carry.X_pred, carry.U_pred)
-    U = carry.U_pred + torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.05)
+    U = carry.U_pred + torch.as_tensor(rng.normal(size=(B, H, 2)) * np.asarray(u_noise))
     X, _ = rollout(prob.fns, params, z0, U)
     lam = torch.as_tensor(np.abs(rng.normal(size=(B, H, 10))) * 0.1)
     z0 = z0.clone()
-    z0[0, 1] = 1e8  # beyond the 1e7 state guard
-    z0[1, 2] = float("nan")  # a NaN start
+    f_big, f_nan = (2, 3) if tail == "kinematic" else (1, 2)  # no clamp or stop brings them back
+    z0[0, f_big] = 1e8  # beyond the 1e7 state guard
+    z0[1, f_nan] = float("nan")  # a NaN start
     mu, rho = torch.full((B,), 10.0), torch.ones(B)
     arrays = (X, U, lam, mu, rho, params.curvature, params.ds, z0)
     return (prob.family,) + tuple(a.to(torch.float32).contiguous() for a in arrays)
@@ -273,11 +292,12 @@ def test_exits_and_member_order_change_no_bit(host_lib, inputs):
 
 def host_derivs(lib, fam, X, U, lam, mu, curv, ds):
     """Kernel 4's outputs (g, Hw, J) as DerivsKernelFM returns them."""
-    H, NW = fam.H, 12
-    out = (torch.empty(H, NW, B), torch.empty(H, NW, NW, B), torch.empty(H, 10, NW, B))
+    H, NZ, NW = fam.H, fam.NZ, fam.NZ + fam.NU
+    out = (torch.empty(H, NW, B), torch.empty(H, NW, NW, B), torch.empty(H, NZ, NW, B))
     soas = [cuda_lib.soa(t) for t in (X, U, lam, mu, curv, ds)]
     params = cuda_lib.family_params(fam)
-    rc = lib.vct_host_derivs(params.ctypes.data, *[t.data_ptr() for t in soas + list(out)], B, H)
+    rc = _entry(lib, fam, "vct_host_derivs")(params.ctypes.data,
+                                             *[t.data_ptr() for t in soas + list(out)], B, H)
     assert rc == 0
     return tuple(t.movedim(-1, 0) for t in out)
 
@@ -286,11 +306,14 @@ def _active(inputs):
     """The inputs with the lateral states spread and the multipliers scaled
     up, so that the slip penalty and the PHR rows of the Hessian's
     second-order block are live (at the inputs' own values it is almost all
-    zeros)."""
+    zeros); for the kinematic family, delta and ey spread, so that the
+    steering box's rows and the boundary cost are live."""
     fam, X, U, lam, mu, _, curv, ds = inputs[:8]
     rng = np.random.default_rng(2)
     X = X.clone()
-    for field, scale in ((1, 2.0), (2, 0.5), (3, 0.1)):  # Uy, r, delta
+    spread = (((1, 0.3), (3, 2.0)) if cuda_lib.is_kinematic(fam)  # delta, ey
+              else ((1, 2.0), (2, 0.5), (3, 0.1)))  # Uy, r, delta
+    for field, scale in spread:
         X[..., field] += torch.as_tensor(rng.normal(size=X.shape[:2]) * scale, dtype=X.dtype)
     return fam, X, U, lam * 300.0, mu, curv, ds
 
@@ -302,6 +325,10 @@ def test_derivs_lane_matches_plain(kernel_lib, inputs):
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         assert _lane_err(a, b).max().item() < DV_TOL
+    if cuda_lib.is_kinematic(fam):  # the steering box's rows live on delta's Hessian entry
+        assert (got[1][:, 1:fam.N, 1, 1] != 0).float().mean() > 0.3
+        assert (got[0][:, :fam.N, 2] != 0).float().mean() > 0.5  # the barrier's s gradient
+        return
     block = got[1][:, :fam.N][:, :, [0, 1, 2, 3, 10]][..., [0, 1, 2, 3, 10]]
     assert (block != 0).float().mean() > 0.8  # the second-order block is live
     if fam.obstacles:  # the barrier's s gradient and (s, s) entry, the only terms on s
@@ -320,9 +347,19 @@ def _edges(inputs):
     w_max (the V floor on point-mass stages) at lam + mu c = 0 exactly."""
     fam, X, U, lam, mu, curv, ds = _active(inputs)
     X, U, lam = X.clone(), U.clone(), lam.clone()
-    cp = dict(zip(cuda_lib.PARAM_FIELDS, cuda_lib.family_params(fam).tolist()))
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
     N = fam.N
+    if cuda_lib.is_kinematic(fam):
+        kp = dict(zip(cuda_lib.KIN_PARAM_FIELDS, cuda_lib.family_params(fam).tolist()))
+        X[2, :, 0] = kp["v_max"]  # the terminal speed hinge's tie
+        X[3, :, 3] = kp["ey_max"]
+        X[4, :, 1], X[4, :, 3], X[4, :, 4] = 1.0, 8.0, 1.2  # kc_prime's clamps' ties
+        X[5, :, 1], U[5, :, 1] = kp["delta_max"], 0.0  # the steering stop's tie
+        lam[5, :, 1] = 0.0  # c = delta - delta_max = 0
+        U[5, :, 0] = f32(kp["a_max"]) - 0.5
+        lam[5, :, 3] = -(mu[5] * (U[5, :, 0] - f32(kp["a_max"])))  # lam = -mu c
+        return fam, X, U, lam, mu, curv, ds
+    cp = dict(zip(cuda_lib.PARAM_FIELDS, cuda_lib.family_params(fam).tolist()))
     X[2, :, 0] = cp["max_speed"]
     X[3, :N, 5] = cp["ey_max"]
     X[3, N:, 2] = cp["ey_max_pm"]
@@ -355,21 +392,21 @@ def test_linesearch_aos_blocks_match_lane(kernel_lib, inputs, n_alpha):
     H = fam.H
     rng = np.random.default_rng(1)
     kff = torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.02, dtype=torch.float32)
-    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, 10)) * 0.01, dtype=torch.float32)
+    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, fam.NZ)) * 0.01, dtype=torch.float32)
     args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
     params = cuda_lib.family_params(fam)
     al = np.asarray(ALILQRConfig(n_alpha=n_alpha).alphas(), np.float32)
     lane = torch.full((n_alpha, B), float("nan"))
     soas = [cuda_lib.soa(t) for t in args]
-    assert kernel_lib.vct_host_linesearch(params.ctypes.data, al.ctypes.data, n_alpha,
-                                          *[t.data_ptr() for t in soas], lane.data_ptr(), B, H,
-                                          0) == 0
+    assert _entry(kernel_lib, fam, "vct_host_linesearch")(
+        params.ctypes.data, al.ctypes.data, n_alpha, *[t.data_ptr() for t in soas],
+        lane.data_ptr(), B, H, 0) == 0
     assert torch.isposinf(lane[:, :2]).all() and torch.isfinite(lane[:, 2:]).any()
     for mode in (1, 2):
         out = torch.full((n_alpha, B), float("nan"))
-        rc = kernel_lib.vct_host_linesearch_aos(params.ctypes.data, al.ctypes.data, n_alpha,
-                                                *[t.contiguous().data_ptr() for t in args],
-                                                out.data_ptr(), B, H, mode)
+        rc = _entry(kernel_lib, fam, "vct_host_linesearch_aos")(
+            params.ctypes.data, al.ctypes.data, n_alpha,
+            *[t.contiguous().data_ptr() for t in args], out.data_ptr(), B, H, mode)
         assert rc == 0
         assert _same_bits(out, lane)
 
@@ -384,7 +421,7 @@ def test_linesearch_staged_matches_lane(kernel_lib, inputs, n_alpha):
     H = fam.H
     rng = np.random.default_rng(1)
     kff = torch.as_tensor(rng.normal(size=(B, H, 2)) * 0.02, dtype=torch.float32)
-    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, 10)) * 0.01, dtype=torch.float32)
+    Kfb = torch.as_tensor(rng.normal(size=(B, H, 2, fam.NZ)) * 0.01, dtype=torch.float32)
     alphas = ALILQRConfig(n_alpha=n_alpha).alphas()
     soas = [cuda_lib.soa(t) for t in (X, U, kff, Kfb, lam, mu, curv, ds, z0)]
     params = cuda_lib.family_params(fam)
@@ -392,9 +429,9 @@ def test_linesearch_staged_matches_lane(kernel_lib, inputs, n_alpha):
     costs = {}
     for mode in (0, 1, 2):  # one lane; the blocks, threads first to last; last to first
         out = torch.full((n_alpha, B), float("nan"))
-        rc = kernel_lib.vct_host_linesearch(params.ctypes.data, al.ctypes.data, n_alpha,
-                                            *[t.data_ptr() for t in soas], out.data_ptr(), B, H,
-                                            mode)
+        rc = _entry(kernel_lib, fam, "vct_host_linesearch")(
+            params.ctypes.data, al.ctypes.data, n_alpha, *[t.data_ptr() for t in soas],
+            out.data_ptr(), B, H, mode)
         assert rc == 0
         costs[mode] = out
     assert _same_bits(costs[1], costs[0]) and _same_bits(costs[2], costs[0])
@@ -423,5 +460,5 @@ def test_counting_build_same_bits_fewer_ops(host_libs, inputs):
     ops_dv, ops_bw = chip_smoke.code_op_counts(count, fam, dv_args, bw_args)
     plain_dv = chip_smoke.count_ops(lambda: derivs_plain(fam, *dv_args)) / B
     plain_bw = chip_smoke.count_ops(lambda: backward_plain(fam, *bw_args)) / B
-    assert 0 < ops_dv < 0.5 * plain_dv
+    assert 0 < ops_dv < (1.0 if cuda_lib.is_kinematic(fam) else 0.5) * plain_dv
     assert ops_dv < ops_bw < plain_bw

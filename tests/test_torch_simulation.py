@@ -64,7 +64,11 @@ from vehicle_control_tpu_torch.controllers.mpc import problems as tproblems
 from vehicle_control_tpu_torch.environment import track as ttrack
 from vehicle_control_tpu_torch.models import dynamic_car as tdc
 from vehicle_control_tpu_torch.scripts import main as tmain
-from vehicle_control_tpu_torch.simulation import RacingSimulator, make_racing_loop
+from vehicle_control_tpu_torch.simulation import (
+    KinematicRacingSimulator,
+    RacingSimulator,
+    make_racing_loop,
+)
 from vehicle_control_tpu_torch.simulation import analysis as tanalysis
 from vehicle_control_tpu_torch.utils import profiling as tprofiling
 from vehicle_control_tpu_torch.utils.config import (
@@ -250,13 +254,24 @@ def test_summarize_matches_jax(capsys):
 
 
 def test_unported_options_raise():
-    """The kinematic controllers and the render adapters raise; obstacles
-    reach the controller's problem (tests/test_torch_obstacles.py runs them)."""
+    """The kinematic tail and the render adapters raise; the kinematic
+    family builds (KinematicRacingSimulator and KinematicMPC on the CPU:
+    tests/test_torch_kinematic.py runs them); obstacles reach the
+    controller's problem (tests/test_torch_obstacles.py runs them)."""
     car, track_cfg = _car_track(load_config)
-    for sc in (_simconfig(["cascaded_kinematic"], {"cascaded_kinematic": {}}),
-               _simconfig(["kinematic"], {"kinematic": {}})):
-        with pytest.raises(NotImplementedError):
-            RacingSimulator(ConfigDict(sc), car, track_cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        RacingSimulator(ConfigDict(_simconfig(["cascaded_kinematic"], {"cascaded_kinematic": {}})),
+                        car, track_cfg, device="cpu")
+    kin_car = load_config(config_path("models/kinematic_car.yaml"))
+    kin = KinematicRacingSimulator(ConfigDict(_simconfig(["kinematic"], {"kinematic": {}})),
+                                   kin_car, track_cfg, device="cpu")
+    prob = kin.entries["kinematic"].problem
+    assert (prob.family.tail, prob.horizon, prob.nz, prob.ns_model) == ("kinematic", 51, 8, 6)
+    assert not prob.family.obstacles  # the simconfig's obstacles: False overrides the YAML's
+    assert tuple(kin.entries["kinematic"].state.shape) == (1, 6)
+    ctrl = tctrl.KinematicMPC(kin_car, ttrack.Track(track_cfg),
+                              load_config(config_path("controllers/kinematic.yaml")), device="cpu")
+    assert ctrl.problem.u_scale.dtype == torch.float64 and len(ctrl.problem.family.obstacles) == 7
     obs = RacingSimulator(ConfigDict(_simconfig(["cascaded"], {"cascaded": {}}, obstacles=True)),
                           car, track_cfg, device="cpu")
     assert len(obs.entries["cascaded"].problem.family.obstacles) == 7

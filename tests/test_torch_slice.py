@@ -159,7 +159,7 @@ def test_port_imports_no_jax():
             "solvers.solve_kernel_fm", "solvers.derivs_kernel_fm", "solvers.al_ilqr",
             "solvers.riccati", "controllers.mpc.controllers", "controllers.mpc.problems",
             "controllers", "environment", "simulation", "simulation.analysis",
-            "scripts.main", "utils.profiling",
+            "scripts.main", "utils.profiling", "models.kinematic_car", "scripts.kinmain",
         )
     ]
     code = (

@@ -62,7 +62,7 @@ def main():
     problem, budget, cfg, _, _ = chip_smoke.family_problem("cascaded_obstacles", env)
     fam = problem.family
     t0 = time.time()
-    w = chip_smoke.warm_inputs(problem, cfg, env)
+    w = chip_smoke.warm_inputs("cascaded_obstacles", problem, cfg, env)
     print(f"warm inputs {time.time() - t0:.0f} s", flush=True)
     sv_args = tuple(w[k] for k in ("z0", "U_init", "lam", "curv", "ds"))
     well = chip_smoke.well_config(budget)

@@ -6,9 +6,9 @@ the warm start (previous predictions and AL multipliers), shifted one stage
 forward after every solve; a lane whose solve diverged is reset to the
 problem's cold-start guess.  The solver config's flags pick the kernels
 (``_kernels``).  ``make_parity_step`` is the reference-parity step (the
-unshifted warm start).  ``CascadedMPC`` and ``SingleTrackMPC`` give the
-reference's ``controller.command(state)`` API over a batch of one, on the
-whole-solve route (``controller_solver_config``).
+unshifted warm start).  ``CascadedMPC``, ``SingleTrackMPC`` and
+``KinematicMPC`` give the reference's ``controller.command(state)`` API over
+a batch of one, on the whole-solve route (``controller_solver_config``).
 """
 
 from __future__ import annotations
@@ -261,3 +261,22 @@ class CascadedMPC(_MPCBase):
 class SingleTrackMPC(CascadedMPC):
     """Single-track-only MPC: the ``singletrack.yaml`` (M = 0) configuration
     of CascadedMPC."""
+
+
+class KinematicMPC(_MPCBase):
+    """Pure kinematic-bicycle MPC (``kinematic.yaml``).  On the card in f32
+    unless the caller asks for another device or dtype."""
+
+    def __init__(self, car_config, track, cfg, dtype=None, device=DEFAULT_DEVICE):
+        dtype = dtype or default_dtype(device)
+        problem = problems.build_kinematic_problem(car_config, track, cfg, dtype, device)
+        super().__init__(problem, cfg, track)
+
+    def _frenet_indices(self):
+        return 2, 3, 4
+
+    def get_state_prediction(self):
+        """Global-frame (x, y, psi) of the predicted trajectory, (H, 3)."""
+        X = self.state_prediction
+        s, ey, epsi = (X[:, i] for i in self._frenet_indices())
+        return torch.stack(track_mod.rel2glob(self._track_data, s, ey, epsi), dim=-1)

@@ -7,7 +7,8 @@ single-track family (``configs/controllers/singletrack.yaml``), and
 point-mass stages (``configs/controllers/cascaded.yaml``), both with or
 without the obstacle barrier (``cfg["obstacles"]``: a cost term over the
 track's discs, ``_obstacle_barrier``); the kinematic tail raises
-``NotImplementedError``.
+``NotImplementedError``.  ``build_kinematic_problem`` is the pure kinematic
+bicycle (``configs/controllers/kinematic.yaml``, H = N + 1 stages).
 
 The callbacks are the family's field-wise closures (solvers.fm_family)
 applied to batch-first tensors: the solver state is z = [x(8), u_prev(2)]
@@ -31,6 +32,7 @@ from vehicle_control_tpu_torch.solvers.fm_family import (  # noqa: F401  OBSTACL
     FMFamily,
     _obstacles_std,
     build_cascaded_family,
+    build_kinematic_family,
 )
 from vehicle_control_tpu_torch.utils.device import DEFAULT_DEVICE, require_device
 
@@ -51,12 +53,12 @@ class MPCProblem(NamedTuple):
     nu: int
     nc: int
     u_scale: torch.Tensor  # (H, nu): physical = scaled * u_scale
-    init_horizon: Callable  # (state0 (B,8), X_prev, U_prev) -> (params, z0 (B, nz))
+    init_horizon: Callable  # (state0 (B, ns), X_prev, U_prev) -> (params, z0 (B, nz))
     initial_prediction: Callable  # () -> (X0 (H, nz), U0 (H, nu))
     ns_model: int
     u_lo: torch.Tensor  # (H, nu) rollout control box, solver units
     u_hi: torch.Tensor
-    warm_start: Callable  # (state0 (B, 8)) -> (X_pred, U_pred) cold-start guess
+    warm_start: Callable  # (state0 (B, ns)) -> (X_pred, U_pred) cold-start guess
     family: FMFamily
 
 
@@ -71,6 +73,41 @@ def _obstacle_barrier(obstacles, s, ey, ds, w):
 
 def _fields(z, u):
     return tuple(z.unbind(-1)) + tuple(u.unbind(-1))
+
+
+def _callbacks(family: FMFamily) -> OCPFunctions:
+    """The solver's batched callbacks over the family's field-wise closures."""
+
+    def _stage(params, n):
+        return params.curvature[:, n], lambda i: params.ds[:, i]
+
+    def dynamics(n, z, u, params):
+        kv, ds_read = _stage(params, n)
+        return torch.stack(family.dyn(n, _fields(z, u), kv, ds_read), dim=-1)
+
+    def stage_cost(n, z, u, params):
+        kv, ds_read = _stage(params, n)
+        return family.stage_cost(n, _fields(z, u), kv, ds_read)
+
+    def constraints(n, z, u, params):
+        c = family.constraints(n, _fields(z, u))
+        return torch.stack(
+            [ci if isinstance(ci, torch.Tensor) else torch.full_like(z[..., 0], ci) for ci in c],
+            dim=-1,
+        )
+
+    return OCPFunctions(dynamics, stage_cost, constraints)
+
+
+def _u_boxes(family: FMFamily, **kw):
+    """The rollout control boxes (u_lo, u_hi), (H, nu) each, stage by stage
+    (solver units)."""
+    u_lo = torch.empty(family.H, family.NU, **kw)
+    u_hi = torch.empty(family.H, family.NU, **kw)
+    for n in range(family.H):
+        for j in range(family.NU):
+            u_lo[n, j], u_hi[n, j] = family.u_box(n, j)
+    return u_lo, u_hi
 
 
 def build_cascaded_problem(
@@ -93,24 +130,6 @@ def build_cascaded_problem(
     nz, nu, nc = family.NZ, family.NU, family.NC
     mpc_dt = float(cfg["mpc_dt"])
     kw = dict(dtype=dtype, device=device)
-
-    def _stage(params, n):
-        return params.curvature[:, n], lambda i: params.ds[:, i]
-
-    def dynamics(n, z, u, params):
-        kv, ds_read = _stage(params, n)
-        return torch.stack(family.dyn(n, _fields(z, u), kv, ds_read), dim=-1)
-
-    def stage_cost(n, z, u, params):
-        kv, ds_read = _stage(params, n)
-        return family.stage_cost(n, _fields(z, u), kv, ds_read)
-
-    def constraints(n, z, u, params):
-        c = family.constraints(n, _fields(z, u))
-        return torch.stack(
-            [ci if isinstance(ci, torch.Tensor) else torch.full_like(z[..., 0], ci) for ci in c],
-            dim=-1,
-        )
 
     u_scale = torch.ones(H, nu, **kw)
     u_scale[:, 0] = FORCE_SCALE  # Fx in kN at every stage
@@ -155,15 +174,59 @@ def build_cascaded_problem(
             U0[:, N:, 1] = p.m * Ux0[:, None] ** 2 * k_tail / FORCE_SCALE
         return X0, U0
 
-    # the rollout control boxes, stage by stage (solver units)
-    u_lo = torch.empty(H, nu, **kw)
-    u_hi = torch.empty(H, nu, **kw)
-    for n in range(H):
-        for j in range(nu):
-            u_lo[n, j], u_hi[n, j] = family.u_box(n, j)
-
-    fns = OCPFunctions(dynamics, stage_cost, constraints)
+    u_lo, u_hi = _u_boxes(family, **kw)
     return MPCProblem(
-        fns, H, nz, nu, nc, u_scale, init_horizon, initial_prediction, 8,
+        _callbacks(family), H, nz, nu, nc, u_scale, init_horizon, initial_prediction, 8,
         u_lo, u_hi, warm_start, family,
+    )
+
+
+def build_kinematic_problem(
+    car_config, track: "track_mod.Track", cfg, dtype=torch.float64, device=DEFAULT_DEVICE,
+) -> MPCProblem:
+    """The pure kinematic MPC problem (``kinematic.yaml``: N running stages
+    and the terminal stage, H = N + 1) on ``device`` in ``dtype``; the
+    controls (a, w) are solved in physical units.
+
+    The card is the default; without CUDA that raises, and the caller asks
+    for ``device="cpu"``."""
+    device = require_device(device)
+    family = build_kinematic_family(car_config, cfg, track.data)
+    track_data = track.data.to(device=device, dtype=dtype)
+    H, N = family.H, family.N
+    nz, nu, nc = family.NZ, family.NU, family.NC
+    mpc_dt = float(cfg["mpc_dt"])
+    kw = dict(dtype=dtype, device=device)
+
+    def init_horizon(state0, X_prev, U_prev):
+        """The ds/curvature horizon from the previous prediction's speeds,
+        with the reference's off-by-one: stage n's ds is mpc_dt v_n + 0.5,
+        while the arc positions the curvature is read at start from s0 with
+        a zero first step; the terminal stage repeats stage N-1's."""
+        ds_traj = mpc_dt * X_prev[:, :, 0] + 0.5  # (B, H)
+        steps = torch.cat([torch.zeros_like(ds_traj[:, :1]), ds_traj[:, 1:]], dim=1)
+        s_traj = torch.cumsum(steps, dim=1) + state0[:, 2:3]
+        k_param = track_mod.curvature(track_data, s_traj[:, :N])
+        ds_param = ds_traj[:, :N]
+        params = HorizonParams(curvature=torch.cat([k_param, k_param[:, -1:]], 1),
+                               ds=torch.cat([ds_param, ds_param[:, -1:]], 1))
+        z0 = torch.cat([state0, state0.new_zeros(state0.shape[0], 2)], dim=1)
+        return params, z0
+
+    def initial_prediction():
+        """The reference's standing-start seed: zeros with v = 0.1."""
+        X0 = torch.zeros(H, nz, **kw)
+        X0[:, 0] = 0.1
+        return X0, torch.zeros(H, nu, **kw)
+
+    def warm_start(state0):
+        """Speed-aligned cold-start guess: v held at max(v0, 0.1)."""
+        X0 = torch.zeros(state0.shape[0], H, nz, **kw)
+        X0[:, :, 0] = torch.clamp_min(state0[:, 0], 0.1)[:, None]
+        return X0, torch.zeros(state0.shape[0], H, nu, **kw)
+
+    u_lo, u_hi = _u_boxes(family, **kw)
+    return MPCProblem(
+        _callbacks(family), H, nz, nu, nc, torch.ones(H, nu, **kw), init_horizon,
+        initial_prediction, 6, u_lo, u_hi, warm_start, family,
     )

@@ -1,6 +1,7 @@
-// Kernel 2: fused backward pass (stage derivatives + Riccati) of the
-// cascaded family (tail="none" or tail="pm"), by a team of TEAM threads
-// per scenario.
+// Kernel 2: fused backward pass (stage derivatives + Riccati), by a team of
+// TEAM threads per scenario: one instantiation for the cascaded family
+// (tail="none" or tail="pm": vct_backward_fm) and one for the kinematic
+// family (vct_backward_fm_kin).
 //
 // Replaces the Pallas TPU kernel build_backward_kernel_fm
 // (vehicle_control_tpu/solvers/backward_kernel_fm.py).  For each scenario it
@@ -38,36 +39,58 @@ using namespace vct;
 
 #if defined(__CUDACC__)
 
+template <class P>
 __global__ void __launch_bounds__(TEAM_BLOCK) backward_fm_kernel(
-    STParams p, const float* __restrict__ x, const float* __restrict__ u,
+    P p, const float* __restrict__ x, const float* __restrict__ u,
     const float* __restrict__ lam, const float* __restrict__ mu, const float* __restrict__ rho,
     const float* __restrict__ curv, const float* __restrict__ ds, float* __restrict__ kff,
     float* __restrict__ kfb, float* __restrict__ dv, float* __restrict__ fail, int B, int H) {
   extern __shared__ float smem[];
   const int b = (blockIdx.x * TEAM_BLOCK + threadIdx.x) / TEAM;
   if (b >= B) return;  // the whole team
-  backward_lane(make_team(smem), b, B, H, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, p);
+  backward_lane(make_team<P>(smem), b, B, H, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, p);
 }
 
 // outputs kff (H, 2, B), kfb (H, 2, NZ, B), dv (2, B), fail (B) as 0/1
+template <class P>
+int backward_launch(const float* params, const float* x, const float* u, const float* lam,
+                    const float* mu, const float* rho, const float* curv, const float* ds,
+                    float* kff, float* kfb, float* dv, float* fail, int B, int H, void* stream) {
+  if (B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  P p;
+  memcpy(&p, params, sizeof(P));
+  cudaError_t rc = team_smem_setup<P>(backward_fm_kernel<P>);
+  if (rc != cudaSuccess) return (int)rc;
+  const int blocks = (int)(((long long)B * TEAM + TEAM_BLOCK - 1) / TEAM_BLOCK);
+  backward_fm_kernel<P><<<blocks, TEAM_BLOCK, TeamLayout<P>::TEAM_SMEM_BYTES,
+                          (cudaStream_t)stream>>>(p, x, u, lam, mu, rho, curv, ds, kff, kfb, dv,
+                                                  fail, B, H);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int vct_backward_fm(const float* params, const float* x, const float* u,
                                const float* lam, const float* mu, const float* rho,
                                const float* curv, const float* ds, float* kff, float* kfb,
                                float* dv, float* fail, int B, int H, void* stream) {
-  if (B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  STParams p;
-  memcpy(&p, params, sizeof(STParams));
-  cudaError_t rc = team_smem_setup(backward_fm_kernel);
-  if (rc != cudaSuccess) return (int)rc;
-  const int blocks = (int)(((long long)B * TEAM + TEAM_BLOCK - 1) / TEAM_BLOCK);
-  backward_fm_kernel<<<blocks, TEAM_BLOCK, TEAM_SMEM_BYTES, (cudaStream_t)stream>>>(
-      p, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B, H);
-  return (int)cudaGetLastError();
+  return backward_launch<STParams>(params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B,
+                                   H, stream);
+}
+
+extern "C" int vct_backward_fm_kin(const float* params, const float* x, const float* u,
+                                   const float* lam, const float* mu, const float* rho,
+                                   const float* curv, const float* ds, float* kff, float* kfb,
+                                   float* dv, float* fail, int B, int H, void* stream) {
+  return backward_launch<KinParams>(params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail,
+                                    B, H, stream);
 }
 
 // the launch shape at B scenarios (team.cuh: team_launch_info)
 extern "C" int vct_backward_fm_info(int B, int* out) {
-  return team_launch_info(backward_fm_kernel, B, out);
+  return team_launch_info<STParams>(backward_fm_kernel<STParams>, B, out);
+}
+
+extern "C" int vct_backward_fm_kin_info(int B, int* out) {
+  return team_launch_info<KinParams>(backward_fm_kernel<KinParams>, B, out);
 }
 
 #endif

@@ -1,5 +1,6 @@
-// Kernel 4: per-stage derivatives of the cascaded family (tail="none" or
-// tail="pm").
+// Kernel 4: per-stage derivatives, one instantiation for the cascaded
+// family (tail="none" or tail="pm": vct_derivs_fm) and one for the
+// kinematic family (vct_derivs_fm_kin).
 //
 // Replaces the Pallas TPU kernel build_derivs_kernel_fm
 // (vehicle_control_tpu/solvers/derivs_kernel_fm.py).  For every (stage,
@@ -34,7 +35,7 @@
 #endif
 #include <string.h>
 
-#include "singletrack.cuh"
+#include "family.cuh"
 
 using namespace vct;
 
@@ -42,14 +43,16 @@ using namespace vct;
 // lam (H, NC, B), mu (B), curv and ds (H, B); outputs g (H, NW, B),
 // hw (H, NW, NW, B) (both triangles of the packed Hessian) and jm (H, NZ,
 // NW, B)
-VCT_HD void derivs_lane(int n, int b, int B, int H, const STParams& p, const float* x,
-                        const float* u, const float* lam, const float* mu, const float* curv,
-                        const float* ds, float* g_out, float* hw_out, float* jm_out) {
-  float wf[NW], lamv[NC], g[NW], Hs[NSYM], Jm[NZ][NW];
+template <class P>
+VCT_HD void derivs_lane(int n, int b, int B, int H, const P& p, const float* x, const float* u,
+                        const float* lam, const float* mu, const float* curv, const float* ds,
+                        float* g_out, float* hw_out, float* jm_out) {
+  constexpr int NZ = P::NZ, NU = P::NU, NC = P::NC, NW = P::NW;
+  float wf[NW], lamv[NC], g[NW], Hs[P::NSYM], Jm[NZ][NW];
   for (int i = 0; i < NZ; ++i) wf[i] = x[at2(n, i, NZ, b, B)];
   for (int j = 0; j < NU; ++j) wf[NZ + j] = u[at2(n, j, NU, b, B)];
   for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
-  with_kind(stage_kind(n, H, p), [&](auto kc) {
+  with_kind(stage_kind(n, H, p), p, [&](auto kc) {
     stage_derivs<decltype(kc)::value>(n, H, wf, lamv, mu[b], curv[n * B + b], ds[n * B + b],
                                       ds[(n > 0 ? n - 1 : 0) * B + b],
                                       ds[seam_stage(p) * B + b], p, g, Hs, Jm);
@@ -57,15 +60,16 @@ VCT_HD void derivs_lane(int n, int b, int B, int H, const STParams& p, const flo
   for (int r = 0; r < NW; ++r) g_out[at2(n, r, NW, b, B)] = g[r];
   for (int r = 0; r < NW; ++r)
     for (int c = 0; c < NW; ++c)
-      hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hs[sym_w(r, c)];
+      hw_out[((size_t)(n * NW + r) * NW + c) * B + b] = Hs[sym_n<NW>(r, c)];
   for (int r = 0; r < NZ; ++r)
     for (int c = 0; c < NW; ++c) jm_out[((size_t)(n * NZ + r) * NW + c) * B + b] = Jm[r][c];
 }
 
 #if defined(__CUDACC__)
 
+template <class P>
 __global__ void __launch_bounds__(128) derivs_fm_kernel(
-    STParams p, const float* __restrict__ x, const float* __restrict__ u,
+    P p, const float* __restrict__ x, const float* __restrict__ u,
     const float* __restrict__ lam, const float* __restrict__ mu, const float* __restrict__ curv,
     const float* __restrict__ ds, float* __restrict__ g, float* __restrict__ hw,
     float* __restrict__ jm, int B, int H) {
@@ -74,23 +78,41 @@ __global__ void __launch_bounds__(128) derivs_fm_kernel(
   derivs_lane(blockIdx.y, b, B, H, p, x, u, lam, mu, curv, ds, g, hw, jm);
 }
 
+template <class P>
+int derivs_launch(const float* params, const float* x, const float* u, const float* lam,
+                  const float* mu, const float* curv, const float* ds, float* g, float* hw,
+                  float* jm, int B, int H, void* stream) {
+  if (B < 1 || H < 1 || H > 65535) return (int)cudaErrorInvalidValue;
+  P p;
+  memcpy(&p, params, sizeof(P));
+  dim3 grid((B + 127) / 128, H);
+  derivs_fm_kernel<P><<<grid, 128, 0, (cudaStream_t)stream>>>(p, x, u, lam, mu, curv, ds, g, hw,
+                                                              jm, B, H);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int vct_derivs_fm(const float* params, const float* x, const float* u,
                              const float* lam, const float* mu, const float* curv,
                              const float* ds, float* g, float* hw, float* jm, int B, int H,
                              void* stream) {
-  if (B < 1 || H < 1 || H > 65535) return (int)cudaErrorInvalidValue;
-  STParams p;
-  memcpy(&p, params, sizeof(STParams));
-  dim3 grid((B + 127) / 128, H);
-  derivs_fm_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(p, x, u, lam, mu, curv, ds, g, hw, jm,
-                                                           B, H);
-  return (int)cudaGetLastError();
+  return derivs_launch<STParams>(params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream);
 }
 
-// the launch shape at B scenarios and H stages (singletrack.cuh:
+extern "C" int vct_derivs_fm_kin(const float* params, const float* x, const float* u,
+                                 const float* lam, const float* mu, const float* curv,
+                                 const float* ds, float* g, float* hw, float* jm, int B, int H,
+                                 void* stream) {
+  return derivs_launch<KinParams>(params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream);
+}
+
+// the launch shape at B scenarios and H stages (family.cuh:
 // kernel_launch_info; the lead number is the threads a (stage, scenario))
 extern "C" int vct_derivs_fm_info(int B, int H, int* out) {
-  return kernel_launch_info(derivs_fm_kernel, 1, (long long)B * H, 128, 0, out);
+  return kernel_launch_info(derivs_fm_kernel<STParams>, 1, (long long)B * H, 128, 0, out);
+}
+
+extern "C" int vct_derivs_fm_kin_info(int B, int H, int* out) {
+  return kernel_launch_info(derivs_fm_kernel<KinParams>, 1, (long long)B * H, 128, 0, out);
 }
 
 #endif

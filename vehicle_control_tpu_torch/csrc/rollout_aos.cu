@@ -1,5 +1,5 @@
-// Kernel 5: line-search costs of the cascaded family from the field-last
-// (array-of-structs) layout.
+// Kernel 5: line-search costs from the field-last (array-of-structs)
+// layout, for the cascaded family and the kinematic family.
 //
 // Replaces the Pallas TPU kernel build_linesearch_kernel
 // (vehicle_control_tpu/solvers/rollout_kernel.py), the JAX package's layout
@@ -28,23 +28,27 @@
 
 using namespace vct;
 
-// Kernel 5's record source: the inputs in the (B, H, F) layout, Xref
-// (B, H, NZ), Uref and kff (B, H, NU), Kfb (B, H, NU, NZ), lam (B, H, NC),
-// mu (B), curv and ds (B, H), z0 (B, NZ).  Warp w of W stages scenarios
-// b0 + w, b0 + w + W, ...
+// Kernel 5's record source for the family P: the inputs in the (B, H, F)
+// layout, Xref (B, H, NZ), Uref and kff (B, H, NU), Kfb (B, H, NU, NZ), lam
+// (B, H, NC), mu (B), curv and ds (B, H), z0 (B, NZ).  Warp w of W stages
+// scenarios b0 + w, b0 + w + W, ...
+template <class P>
 struct AosRecords {
   LsInputs in;
   VCT_HD float mu(int b, int) const { return in.mu[b]; }
-  VCT_HD float z0(int i, int b, int) const { return in.z0[(size_t)b * NZ + i]; }
-  VCT_HD void stage(const STParams& p, int lo, int hi, int b0, int B, int H, StageSlot* slots,
-                    int w, int W, int l) const {
+  VCT_HD float z0(int i, int b, int) const { return in.z0[(size_t)b * P::NZ + i]; }
+  VCT_HD void stage(const P& p, int lo, int hi, int b0, int B, int H, StageSlot<P>* slots, int w,
+                    int W, int l) const {
+    constexpr int NZ = P::NZ, NU = P::NU, NC = P::NC, REC_COPIED = LsLayout<P>::REC_COPIED;
     const int C = hi - lo;
     for (int s = w; s < LS_SCEN && b0 + s < B; s += W) {
       const size_t row = (size_t)(b0 + s) * H;  // the scenario's stage 0
-      StageSlot* dst = slots + s;               // its slot of chunk stage k: dst[k * LS_SCEN]
+      StageSlot<P>* dst = slots + s;            // its slot of chunk stage k: dst[k * LS_SCEN]
       // the contiguous runs: fields [at, at + F) of each of the C records
       const float* runs[7] = {in.xref, in.uref, in.kff, in.kfb, in.lam, in.curv, in.ds};
-      const int F[7] = {NZ, NU, NU, NU * NZ, NC, 1, 1}, at[7] = {0, 10, 12, 14, 34, 44, 45};
+      const int F[7] = {NZ, NU, NU, NU * NZ, NC, 1, 1};
+      const int at[7] = {0, NZ, NZ + NU, NZ + 2 * NU, NZ + 2 * NU + NU * NZ,
+                         NZ + 2 * NU + NU * NZ + NC, NZ + 2 * NU + NU * NZ + NC + 1};
       for (int t = 0; t < 7; ++t)
         for (int e = l; e < C * F[t]; e += 32)
           copy_async4(slot_field(&dst[e / F[t] * LS_SCEN], at[t] + e % F[t]),
@@ -52,7 +56,7 @@ struct AosRecords {
       // a field a lane: the previous and the seam stage's arc steps, the box
       for (int e = l; e < C * 6; e += 32) {
         const int k = e / 6, f = e % 6, n = lo + k;
-        float* field = slot_field(&dst[k * LS_SCEN], 46 + f);
+        float* field = slot_field(&dst[k * LS_SCEN], REC_COPIED - 2 + f);
         if (f == 0)
           copy_async4(field, in.ds + row + (n > 0 ? n - 1 : 0));
         else if (f == 1)
@@ -66,20 +70,36 @@ struct AosRecords {
 
 #if defined(__CUDACC__)
 
-// costs (A, B); every other pointer is a device array in the (B, H, F) layout
+// costs (A, B); every other pointer is a device array in the (B, H, F)
+// layout; one entry a family (vct_linesearch_aos: the cascaded family,
+// _kin: the kinematic family)
 extern "C" int vct_linesearch_aos(const float* params, const float* alphas, int A,
                                   const float* xref, const float* uref, const float* kff,
                                   const float* kfb, const float* lam, const float* mu,
                                   const float* curv, const float* ds, const float* z0,
                                   float* costs, int B, int H, void* stream) {
-  return linesearch_launch<AosRecords>(params, alphas, A,
-                                       LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0},
-                                       costs, B, H, stream);
+  return linesearch_launch<STParams, AosRecords<STParams>>(
+      params, alphas, A, LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}, costs, B, H,
+      stream);
+}
+
+extern "C" int vct_linesearch_aos_kin(const float* params, const float* alphas, int A,
+                                      const float* xref, const float* uref, const float* kff,
+                                      const float* kfb, const float* lam, const float* mu,
+                                      const float* curv, const float* ds, const float* z0,
+                                      float* costs, int B, int H, void* stream) {
+  return linesearch_launch<KinParams, AosRecords<KinParams>>(
+      params, alphas, A, LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}, costs, B, H,
+      stream);
 }
 
 // the launch shape at B scenarios and A step sizes
 extern "C" int vct_linesearch_aos_info(int B, int A, int* out) {
-  return linesearch_launch_info<AosRecords>(B, A, out);
+  return linesearch_launch_info<STParams, AosRecords<STParams>>(B, A, out);
+}
+
+extern "C" int vct_linesearch_aos_kin_info(int B, int A, int* out) {
+  return linesearch_launch_info<KinParams, AosRecords<KinParams>>(B, A, out);
 }
 
 #endif

@@ -1,5 +1,6 @@
-// Kernel 1: line-search costs of the cascaded family (tail="none" or
-// tail="pm").
+// Kernel 1: line-search costs, one instantiation for the cascaded family
+// (tail="none" or tail="pm": vct_linesearch_fm) and one for the kinematic
+// family (vct_linesearch_fm_kin).
 //
 // Replaces the Pallas TPU kernel build_linesearch_kernel_fm
 // (vehicle_control_tpu/solvers/rollout_kernel_fm.py).  For each of A step
@@ -32,6 +33,9 @@ using namespace vct;
 // STParams' floats (cuda_lib.PARAM_FIELDS: the obstacle table's included)
 extern "C" int vct_param_count() { return (int)(sizeof(STParams) / sizeof(float)); }
 
+// KinParams' floats (cuda_lib.KIN_PARAM_FIELDS)
+extern "C" int vct_kin_param_count() { return (int)(sizeof(KinParams) / sizeof(float)); }
+
 extern "C" const char* vct_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -42,14 +46,28 @@ extern "C" int vct_linesearch_fm(const float* params, const float* alphas, int A
                                  const float* kfb, const float* lam, const float* mu,
                                  const float* curv, const float* ds, const float* z0,
                                  float* costs, int B, int H, void* stream) {
-  return linesearch_launch<SoaRecords>(params, alphas, A,
-                                       LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0},
-                                       costs, B, H, stream);
+  return linesearch_launch<STParams, SoaRecords<STParams>>(
+      params, alphas, A, LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}, costs, B, H,
+      stream);
+}
+
+extern "C" int vct_linesearch_fm_kin(const float* params, const float* alphas, int A,
+                                     const float* xref, const float* uref, const float* kff,
+                                     const float* kfb, const float* lam, const float* mu,
+                                     const float* curv, const float* ds, const float* z0,
+                                     float* costs, int B, int H, void* stream) {
+  return linesearch_launch<KinParams, SoaRecords<KinParams>>(
+      params, alphas, A, LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}, costs, B, H,
+      stream);
 }
 
 // the launch shape at B scenarios and A step sizes
 extern "C" int vct_linesearch_fm_info(int B, int A, int* out) {
-  return linesearch_launch_info<SoaRecords>(B, A, out);
+  return linesearch_launch_info<STParams, SoaRecords<STParams>>(B, A, out);
+}
+
+extern "C" int vct_linesearch_fm_kin_info(int B, int A, int* out) {
+  return linesearch_launch_info<KinParams, SoaRecords<KinParams>>(B, A, out);
 }
 
 #endif

@@ -3,9 +3,9 @@
 // and the closures of solvers/fm_family.py (stage_cost, constraints,
 // al_cost, dyn, u_box, stage_derivs) for tail="none" (N = H single-track
 // stages) and tail="pm" (N single-track stages, then H - N point-mass
-// stages), plus the per-lane pieces the kernels share: the closed-loop stage
-// of a line-search candidate (kernels 1, 3 and 5) and the stage derivatives
-// (kernels 2-4; team.cuh holds the backward sweep of kernels 2 and 3).
+// stages).  Its parameter block, STParams, is the family's type: the
+// kernels are templates over it (family.cuh), and the kinematic family
+// (kinematic.cuh, KinParams) gives the same functions for its own.
 // Templates over the scalar type give values (float) and exact derivatives
 // (Jet); the stage derivatives take most of theirs in closed form (the RK4
 // Jacobian by its analytic chain, the gradient and the Hessian outside one
@@ -29,6 +29,7 @@
 
 namespace vct {
 
+// the cascaded family's widths (STParams::NZ, ...)
 constexpr int NZ = 10;  // solver state: 8 model fields + previous (Fx, u1)
 constexpr int NU = 2;   // controls: u_Fx (kN), then w or, on point-mass stages, u_Fy (kN)
 constexpr int NC = 10;  // stage constraints
@@ -42,9 +43,22 @@ constexpr float HALF_PI = 1.57079632679489661923f;
 constexpr int MAX_OBS = 16;           // discs of the obstacle table (cuda_lib.MAX_OBS)
 constexpr float OBSTACLE_EPS = 1e-2f;  // the floor of the barrier's denominator
 
+// the packed upper triangle of a symmetric matrix of order N, row by row:
+// the Hessian as stage_derivs gives it and kernels 2 and 3 keep it
+template <int N>
+VCT_HD int sym_n(int r, int c) {
+  if (r > c) { int x = r; r = c; c = x; }
+  return r * (2 * N - r + 1) / 2 + c - r;
+}
+
 // Car parameters, cost weights and bounds of the family, every field a
 // float; the order is cuda_lib.PARAM_FIELDS.  Passed to the kernels by value.
+// The static members are the family's widths: the solver state (NZ, its
+// first NX fields the model's, then the previous controls), the controls,
+// the constraint rows, a stage's variables and its packed Hessian.
 struct STParams {
+  static constexpr int NZ = vct::NZ, NU = vct::NU, NC = vct::NC, NX = 8, NW = vct::NW,
+                       NSYM = NW * (NW + 1) / 2;
   float m, Izz, a, b, l, h, eps, Peng, Xdf, Xdr, Xbf, Xbr, Caf, Car, mu_f, mu_r,
       gcc, Av2, Cd, Frr;
   float w_time, w_speed, w_ey, w_epsi, w_w, w_Fx, w_dev, w_boundary, w_slip;
@@ -121,7 +135,7 @@ VCT_HD Segments segments(int H, const STParams& p) {
 
 // f(KindC<kind>{}): the kind as a compile-time constant
 template <class F>
-VCT_HD void with_kind(int kind, F&& f) {
+VCT_HD void with_kind(int kind, const STParams&, F&& f) {
   switch (kind) {
     case K_ST: f(KindC<K_ST>{}); break;
     case K_ST_TERM: f(KindC<K_ST_TERM>{}); break;
@@ -129,18 +143,6 @@ VCT_HD void with_kind(int kind, F&& f) {
     case K_SWITCH: f(KindC<K_SWITCH>{}); break;
     case K_TAIL: f(KindC<K_TAIL>{}); break;
     default: f(KindC<K_TERM>{}); break;
-  }
-}
-
-// f(n, KindC<kind of n>{}) for every stage in order, one segment at a time
-template <class F>
-VCT_HD void for_each_stage(int H, const STParams& p, F&& f) {
-  Segments sg = segments(H, p);
-  for (int s = 0; s < sg.count; ++s) {
-    int lo = sg.lo[s], hi = sg.hi[s];
-    with_kind(sg.kind[s], [&](auto kc) {
-      for (int n = lo; n < hi; ++n) f(n, kc);
-    });
   }
 }
 
@@ -365,8 +367,8 @@ VCT_HD void pm_step(const T x[5], const T& Fx, const T& Fy, float k, float h, co
 
 // -- costs and constraints -------------------------------------------------------------
 
-template <class T>
-VCT_HD T boundary(const T& ey, float dsn, float lo, float hi, const STParams& p) {
+template <class T, class P>
+VCT_HD T boundary(const T& ey, float dsn, float lo, float hi, const P& p) {
   T below = Where(val(ey) < lo, sq(ey - lo), 0.f);
   T above = Where(val(ey) > hi, sq(ey - hi), 0.f);
   return p.w_boundary * dsn * (below + above);
@@ -425,7 +427,8 @@ VCT_HD float active(float x) { return x > 0.f ? 1.f : (x == 0.f ? 0.25f : 0.f); 
 // The squares are rounded on their own (mul_rn), so dist rounds as the
 // plain version's and the floor decides alike.  Every lane reads the same
 // table, so the loop does not diverge a warp.
-VCT_HD float obstacle_barrier(float s, float ey, float dsn, const STParams& p) {
+template <class P>
+VCT_HD float obstacle_barrier(float s, float ey, float dsn, const P& p) {
   float acc = 0.f;
   const int n_obs = (int)p.n_obs;
   for (int i = 0; i < n_obs; ++i) {
@@ -710,13 +713,9 @@ VCT_HD_NOINLINE void rk4_jacobian(const float wf[NW], float kv, float h, const S
     }
 }
 
-// the packed upper triangle of a symmetric matrix of order NW, row by row:
-// the Hessian as stage_derivs gives it and kernels 2 and 3 keep it
-constexpr int NSYM = NW * (NW + 1) / 2;  // 78
-VCT_HD int sym_w(int r, int c) {
-  if (r > c) { int x = r; r = c; c = x; }
-  return r * (2 * NW - r + 1) / 2 + c - r;
-}
+// the cascaded family's packed Hessian (sym_n)
+constexpr int NSYM = STParams::NSYM;  // 78
+VCT_HD int sym_w(int r, int c) { return sym_n<NW>(r, c); }
 
 // tan and cos of a: the sine and cosine of the value once, each a chain
 template <class T>
@@ -758,7 +757,8 @@ VCT_HD T st_block(const T x[4], const T& Fx, const float lam[NC], float mu, cons
 VCT_HD float phr_arg(float lam, float mu, float c) { return lam + mul_rn(mu, c); }
 
 // d/dey of the boundary cost: w_boundary dsn 2 (ey - bound) beyond a bound
-VCT_HD float boundary_slope(float ey, float dsn, float lo, float hi, const STParams& p) {
+template <class P>
+VCT_HD float boundary_slope(float ey, float dsn, float lo, float hi, const P& p) {
   float below = ey < lo ? 2.f * (ey - lo) : 0.f, above = ey > hi ? 2.f * (ey - hi) : 0.f;
   return p.w_boundary * dsn * (below + above);
 }
@@ -773,14 +773,16 @@ VCT_HD void terminal_slope(float speed, float ey, float epsi, const int at[4], c
 }
 
 // The obstacle barrier's gradient on (s, ey) and its 2x2 Hessian block,
-// added into g and Hs at (is, ie), in closed form.  Per disc, with d the
+// added into g and Hs (the family's packed Hessian) at (is, ie), in closed
+// form.  Per disc, with d the
 // (s, ey) distance to its centre, u = (s - so, ey - eo) / d and the term
 // f(d) = w dsn / max(d - R, OBSTACLE_EPS): the gradient f'(d) u and the
 // block f''(d) u u' + f'(d) (I - u u') / d.  On a floored disc (d - R <
 // OBSTACLE_EPS) the term is a constant and adds nothing; at the tie, JAX's
 // max takes half of each side (tie_weight).
-VCT_HD void obstacle_derivs(float s, float ey, float dsn, int is, int ie, const STParams& p,
-                            float g[NW], float Hs[NSYM]) {
+template <class P>
+VCT_HD void obstacle_derivs(float s, float ey, float dsn, int is, int ie, const P& p, float* g,
+                            float* Hs) {
   float gs = 0.f, ge = 0.f, hss = 0.f, hse = 0.f, hee = 0.f;
   const int n_obs = (int)p.n_obs;
   const float wd = p.w_obs * dsn;
@@ -802,9 +804,9 @@ VCT_HD void obstacle_derivs(float s, float ey, float dsn, int is, int ie, const 
   }
   g[is] += gs;
   g[ie] += ge;
-  Hs[sym_w(is, is)] += hss;
-  Hs[sym_w(is, ie)] += hse;
-  Hs[sym_w(ie, ie)] += hee;
+  Hs[sym_n<P::NW>(is, is)] += hss;
+  Hs[sym_n<P::NW>(is, ie)] += hse;
+  Hs[sym_n<P::NW>(ie, ie)] += hee;
 }
 
 // The gradient and the packed Hessian of a single-track stage's AL cost
@@ -985,92 +987,5 @@ VCT_HD void stage_derivs(int n, int H, const float wf[NW], const float lam[NC],
   else
     pm_cost_derivs<K>(n, H, wf, lam, mu, dsn, dsp, dss, p, g, Hs);
 }
-
-// -- per-lane kernel bodies ----------------------------------------------------------------
-
-// SoA indexing helpers: (stage, field, scenario)
-VCT_HD int at2(int n, int f, int F, int b, int B) { return (n * F + f) * B + b; }
-
-// one stage of one lane as the closed-loop rollouts read it: the reference
-// state and control, the gains, the multipliers, the arc parameters (dss:
-// the seam stage's arc step) and the control box
-struct Stage {
-  float xref[NZ], uref[NU], kff[NU], kfb[NU][NZ], lam[NC];
-  float kv, dsn, dsp, dss;
-  float lo[NU], hi[NU];
-};
-
-VCT_HD void load_stage(int n, int b, int B, const float* X, const float* U, const float* kff,
-                       const float* kfb, const float* lam, const float* curv, const float* ds,
-                       const STParams& p, Stage& s) {
-  for (int i = 0; i < NZ; ++i) s.xref[i] = X[at2(n, i, NZ, b, B)];
-  for (int j = 0; j < NU; ++j) {
-    s.uref[j] = U[at2(n, j, NU, b, B)];
-    s.kff[j] = kff[at2(n, j, NU, b, B)];
-    for (int i = 0; i < NZ; ++i) s.kfb[j][i] = kfb[((size_t)(n * NU + j) * NZ + i) * B + b];
-  }
-  for (int j = 0; j < NC; ++j) s.lam[j] = lam[at2(n, j, NC, b, B)];
-  s.kv = curv[n * B + b];
-  s.dsn = ds[n * B + b];
-  s.dsp = ds[(n > 0 ? n - 1 : 0) * B + b];
-  s.dss = ds[seam_stage(p) * B + b];
-  stage_box(n, p, s.lo, s.hi);
-}
-
-// the closed-loop law u = clip(uref + alpha*kff + Kfb (z - xref), u_box).
-// Not inlined, so the line search and the re-roll of its choice run the
-// same instructions and agree to the bit.
-VCT_HD_NOINLINE void feedback_u(float alpha, const float z[NZ], const Stage& s, float u[NU]) {
-  float dz[NZ];
-  for (int i = 0; i < NZ; ++i) dz[i] = z[i] - s.xref[i];
-  for (int j = 0; j < NU; ++j) {
-    float fb = dz[0] * s.kfb[j][0];
-    for (int i = 1; i < NZ; ++i) fb = fb + dz[i] * s.kfb[j][i];
-    float uj = s.uref[j] + alpha * s.kff[j] + fb;
-    u[j] = vmin(vmax(uj, s.lo[j]), s.hi[j]);
-  }
-}
-
-// one stage of kind K of a line-search candidate: adds the AL stage cost to
-// acc and steps z; a next state that is non-finite or reaches |z| >= 1e7
-// makes acc +inf for good
-template <int K>
-VCT_HD void candidate_stage(int n, int H, float alpha, float mu, const Stage& s,
-                            const STParams& p, float z[NZ], float& acc) {
-  float wf[NW], nxt[NZ];
-  feedback_u(alpha, z, s, wf + NZ);
-  for (int i = 0; i < NZ; ++i) wf[i] = z[i];
-  float cost = al_cost<K>(n, H, wf, s.lam, mu, s.dsn, s.dsp, s.dss, p);
-  dyn<K>(wf, s.kv, s.dsn, p, nxt);
-  bool ok = true;
-  for (int i = 0; i < NZ; ++i) {
-    ok = ok && finite(nxt[i]) && fabsf(nxt[i]) < 1e7f;
-    z[i] = nxt[i];
-  }
-  acc = ok ? acc + cost : INFINITY;
-}
-
-#if defined(__CUDACC__)
-
-// the launch shape of a kernel and what the card makes of it: out = {lead
-// (the kernel's own first number), threads per launch, block, registers,
-// local (stack) bytes per thread, static shared bytes, dynamic shared bytes
-// per block, resident blocks per SM, resident warps per SM}
-template <class Kernel>
-int kernel_launch_info(Kernel* kernel, int lead, long long threads, int block, int smem,
-                       int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t rc = cudaFuncGetAttributes(&fa, kernel);
-  int blocks = 0;
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
-  if (rc != cudaSuccess) return (int)rc;
-  const int vals[9] = {lead, (int)threads, block, fa.numRegs, (int)fa.localSizeBytes,
-                       (int)fa.sharedSizeBytes, smem, blocks, blocks * block / 32};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
-  return 0;
-}
-
-#endif
 
 }  // namespace vct

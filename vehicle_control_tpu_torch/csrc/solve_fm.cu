@@ -1,5 +1,7 @@
-// Kernel 3: the whole AL-iLQR solve of the cascaded family (tail="none" or
-// tail="pm") in one launch, by a team of TEAM threads per scenario.
+// Kernel 3: the whole AL-iLQR solve in one launch, by a team of TEAM
+// threads per scenario: one instantiation for the cascaded family
+// (tail="none" or tail="pm", STParams: vct_solve_fm) and one for the
+// kinematic family (KinParams: vct_solve_fm_kin).
 //
 // Replaces the Pallas TPU kernel build_solve_kernel_fm
 // (vehicle_control_tpu/solvers/solve_kernel_fm.py).  Per scenario: clamp U,
@@ -95,7 +97,9 @@ VCT_HD float nan_to_num(float x) {
   return x;
 }
 
-VCT_HD void load_w(int n, int b, int B, const float* X, const float* U, float wf[NW]) {
+template <class P>
+VCT_HD void load_w(int n, int b, int B, const float* X, const float* U, float wf[P::NW]) {
+  constexpr int NZ = P::NZ, NU = P::NU;
   for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
   for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
 }
@@ -110,14 +114,15 @@ VCT_HD float ordered_sum(const Team& tm, int H) {
 }
 
 // the AL cost of the lane's current (X, U) at penalty mu
+template <class P>
 VCT_HD float total_al_cost(const Team& tm, int b, int B, int H, float mu, const float* X,
-                           const float* U, const float* lam, const float* ds,
-                           const STParams& p) {
+                           const float* U, const float* lam, const float* ds, const P& p) {
+  constexpr int NW = P::NW, NC = P::NC;
   const float dss = ds[seam_stage(p) * B + b];
   phase(tm, [&](int t) {
     for_member_stages(t, H, p, [&](int n, auto kc) {
       float wf[NW], lamv[NC];
-      load_w(n, b, B, X, U, wf);
+      load_w<P>(n, b, B, X, U, wf);
       for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
       tm.sh[n] = al_cost<decltype(kc)::value>(n, H, wf, lamv, mu, ds[n * B + b],
                                               ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
@@ -128,18 +133,20 @@ VCT_HD float total_al_cost(const Team& tm, int b, int B, int H, float mu, const 
 
 // the costs of step sizes a0..a1-1 into sh[S_COST + a], member t rolling
 // out a0 + t, a0 + t + TEAM, ...; the steps a1..A-1 get +inf
+template <class P>
 VCT_HD_NOINLINE void sweep_candidates(const Team& tm, int b, int B, int H, int a0, int a1,
                                       int A, float mu, const SolveConfig& cfg, const float* z0,
                                       const float* X, const float* U, const float* kff,
                                       const float* kfb, const float* lam, const float* curv,
-                                      const float* ds, const STParams& p) {
-  float* costs = tm.sh + S_COST;
+                                      const float* ds, const P& p) {
+  constexpr int NZ = P::NZ;
+  float* costs = tm.sh + TeamLayout<P>::S_COST;
   phase(tm, [&](int t) {
     for (int a = a0 + t; a < a1; a += TEAM) {
       float z[NZ], acc = 0.f;
       for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
       for_each_stage(H, p, [&](int n, auto kc) {
-        Stage s;
+        Stage<P> s;
         load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, p, s);
         candidate_stage<decltype(kc)::value>(n, H, cfg.alphas[a], mu, s, p, z, acc);
       });
@@ -152,13 +159,15 @@ VCT_HD_NOINLINE void sweep_candidates(const Team& tm, int b, int B, int H, int a
 
 // roll the chosen step and write it into X and U, in place: stage n reads
 // its old X and U before it overwrites them
+template <class P>
 VCT_HD void reroll(int b, int B, int H, float alpha, const float* z0, float* X, float* U,
                    const float* kff, const float* kfb, const float* lam, const float* curv,
-                   const float* ds, const STParams& p) {
+                   const float* ds, const P& p) {
+  constexpr int NZ = P::NZ, NU = P::NU, NW = P::NW;
   float z[NZ];
   for (int i = 0; i < NZ; ++i) z[i] = z0[i * B + b];
   for_each_stage(H, p, [&](int n, auto kc) {
-    Stage s;
+    Stage<P> s;
     load_stage(n, b, B, X, U, kff, kfb, lam, curv, ds, p, s);
     float wf[NW], nxt[NZ];
     feedback_u(alpha, z, s, wf + NZ);
@@ -184,12 +193,13 @@ VCT_HD bool armijo_ok(const SolveConfig& cfg, int a, float cost_a, float cost_al
 }
 
 // up to `length` inner iterations at penalty mu
+template <class P>
 VCT_HD_NOINLINE void run_inner(const Team& tm, int b, int B, int H, float mu, int length,
                                const SolveConfig& cfg, const float* z0, float* X, float* U,
                                const float* lam, float* kff, float* kfb, const float* curv,
-                               const float* ds, const STParams& p, LaneState& st) {
+                               const float* ds, const P& p, LaneState& st) {
   const int A = cfg.n_alpha;
-  const float* costs = tm.sh + S_COST;
+  const float* costs = tm.sh + TeamLayout<P>::S_COST;
   float cost_al = total_al_cost(tm, b, B, H, mu, X, U, lam, ds, p);
   bool done = false;
   for (int it = 0; it < length; ++it) {
@@ -246,10 +256,12 @@ VCT_HD_NOINLINE void run_inner(const Team& tm, int b, int B, int H, float mu, in
 // the step accepted in the first inner iteration and the inner iterations
 // run (cuda_lib.SOLVE_STATS); kff (H, NU, B) and kfb (H, NU, NZ, B) are
 // scratch.  H <= CHUNK (the per-stage sums live in the chunk).
+template <class P>
 VCT_HD void solve_lane(const Team& tm, int b, int B, int H, const SolveConfig& cfg,
-                       const STParams& p, const float* z0, const float* u0, const float* lam0,
+                       const P& p, const float* z0, const float* u0, const float* lam0,
                        const float* curv, const float* ds, float* X, float* U, float* lam,
                        float* kff, float* kfb, float* stats) {
+  constexpr int NZ = P::NZ, NU = P::NU, NC = P::NC, NW = P::NW;
   phase(tm, [&](int t) {  // clamp U, copy the multipliers
     for (int n = t; n < H; n += TEAM) {
       float lo[NU], hi[NU];
@@ -281,7 +293,7 @@ VCT_HD void solve_lane(const Team& tm, int b, int B, int H, const SolveConfig& c
     phase(tm, [&](int t) {  // multipliers at this penalty
       for_member_stages(t, H, p, [&](int n, auto kc) {
         float wf[NW], c[NC];
-        load_w(n, b, B, X, U, wf);
+        load_w<P>(n, b, B, X, U, wf);
         stage_constraints<decltype(kc)::value>(n, wf, p, c);
         for (int j = 0; j < NC; ++j) {
           int at = at2(n, j, NC, b, B);
@@ -294,13 +306,13 @@ VCT_HD void solve_lane(const Team& tm, int b, int B, int H, const SolveConfig& c
     run_inner(tm, b, B, H, cfg.mus[cfg.n_outer], cfg.n_polish, cfg, z0, X, U, lam, kff, kfb,
               curv, ds, p, st);
   const float dss = ds[seam_stage(p) * B + b];
-  float* part = tm.sh + S_PART;
+  float* part = tm.sh + TeamLayout<P>::S_PART;
   phase(tm, [&](int t) {  // raw stage costs and each member's largest violation
     float viol = 0.f;
     for_member_stages(t, H, p, [&](int n, auto kc) {
       constexpr int K = decltype(kc)::value;
       float wf[NW], c[NC];
-      load_w(n, b, B, X, U, wf);
+      load_w<P>(n, b, B, X, U, wf);
       tm.sh[n] = stage_cost<K>(n, H, wf, ds[n * B + b], ds[(n > 0 ? n - 1 : 0) * B + b], dss, p);
       stage_constraints<K>(n, wf, p, c);
       for (int j = 0; j < NC; ++j) viol = vmax(viol, c[j]);
@@ -323,26 +335,45 @@ VCT_HD void solve_lane(const Team& tm, int b, int B, int H, const SolveConfig& c
   });
 }
 
-// the launcher's checks: 0 or the error to return
+// the launcher's checks for the family P: 0 or the error to return
+template <class P>
 VCT_HD int solve_args_error(const SolveConfig& cfg, int B, int H) {
-  return (B < 1 || H < 1 || H > CHUNK || cfg.n_alpha < 1 || cfg.n_alpha > MAX_ALPHA ||
-          cfg.n_outer < 0 || cfg.n_outer > MAX_OUTER)
+  return (B < 1 || H < 1 || H > TeamLayout<P>::CHUNK || cfg.n_alpha < 1 ||
+          cfg.n_alpha > MAX_ALPHA || cfg.n_outer < 0 || cfg.n_outer > MAX_OUTER)
              ? 1
              : 0;
 }
 
 #if defined(__CUDACC__)
 
+template <class P>
 __global__ void __launch_bounds__(TEAM_BLOCK) solve_fm_kernel(
-    STParams p, SolveConfig cfg, const float* __restrict__ z0, const float* __restrict__ u0,
+    P p, SolveConfig cfg, const float* __restrict__ z0, const float* __restrict__ u0,
     const float* __restrict__ lam0, const float* __restrict__ curv, const float* __restrict__ ds,
     float* __restrict__ x, float* __restrict__ u, float* __restrict__ lam, float* __restrict__ kff,
     float* __restrict__ kfb, float* __restrict__ stats, int B, int H) {
   extern __shared__ float smem[];
   const int b = (blockIdx.x * TEAM_BLOCK + threadIdx.x) / TEAM;
   if (b >= B) return;  // the whole team
-  solve_lane(make_team(smem), b, B, H, cfg, p, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb,
+  solve_lane(make_team<P>(smem), b, B, H, cfg, p, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb,
              stats);
+}
+
+template <class P>
+int solve_launch(const float* params, const void* config, const float* z0, const float* u0,
+                 const float* lam0, const float* curv, const float* ds, float* x, float* u,
+                 float* lam, float* kff, float* kfb, float* stats, int B, int H, void* stream) {
+  SolveConfig cfg;
+  memcpy(&cfg, config, sizeof(SolveConfig));
+  if (solve_args_error<P>(cfg, B, H)) return (int)cudaErrorInvalidValue;
+  P p;
+  memcpy(&p, params, sizeof(P));
+  cudaError_t rc = team_smem_setup<P>(solve_fm_kernel<P>);
+  if (rc != cudaSuccess) return (int)rc;
+  const int blocks = (int)(((long long)B * TEAM + TEAM_BLOCK - 1) / TEAM_BLOCK);
+  solve_fm_kernel<P><<<blocks, TEAM_BLOCK, TeamLayout<P>::TEAM_SMEM_BYTES, (cudaStream_t)stream>>>(
+      p, cfg, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats, B, H);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int vct_solve_config_size() { return (int)sizeof(SolveConfig); }
@@ -351,22 +382,25 @@ extern "C" int vct_solve_fm(const float* params, const void* config, const float
                             const float* u0, const float* lam0, const float* curv,
                             const float* ds, float* x, float* u, float* lam, float* kff,
                             float* kfb, float* stats, int B, int H, void* stream) {
-  SolveConfig cfg;
-  memcpy(&cfg, config, sizeof(SolveConfig));
-  if (solve_args_error(cfg, B, H)) return (int)cudaErrorInvalidValue;
-  STParams p;
-  memcpy(&p, params, sizeof(STParams));
-  cudaError_t rc = team_smem_setup(solve_fm_kernel);
-  if (rc != cudaSuccess) return (int)rc;
-  const int blocks = (int)(((long long)B * TEAM + TEAM_BLOCK - 1) / TEAM_BLOCK);
-  solve_fm_kernel<<<blocks, TEAM_BLOCK, TEAM_SMEM_BYTES, (cudaStream_t)stream>>>(
-      p, cfg, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb, stats, B, H);
-  return (int)cudaGetLastError();
+  return solve_launch<STParams>(params, config, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb,
+                                stats, B, H, stream);
+}
+
+extern "C" int vct_solve_fm_kin(const float* params, const void* config, const float* z0,
+                                const float* u0, const float* lam0, const float* curv,
+                                const float* ds, float* x, float* u, float* lam, float* kff,
+                                float* kfb, float* stats, int B, int H, void* stream) {
+  return solve_launch<KinParams>(params, config, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb,
+                                 stats, B, H, stream);
 }
 
 // the launch shape at B scenarios (team.cuh: team_launch_info)
 extern "C" int vct_solve_fm_info(int B, int* out) {
-  return team_launch_info(solve_fm_kernel, B, out);
+  return team_launch_info<STParams>(solve_fm_kernel<STParams>, B, out);
+}
+
+extern "C" int vct_solve_fm_kin_info(int B, int* out) {
+  return team_launch_info<KinParams>(solve_fm_kernel<KinParams>, B, out);
 }
 
 #endif

@@ -14,25 +14,28 @@
 // code runs once and a phase loops over the members, so the same source
 // builds with g++ for rehearsal (csrc/host_driver.cpp).
 //
-// The team's shared area holds
+// The team's shared area (TeamLayout<P>, for the family of parameter block
+// P) holds
 // - a chunk: the derivatives of up to TEAM stages, one slot each: g (NW),
 //   the Hessian's packed upper triangle (NW(NW+1)/2, as stage_derivs
-//   gives it) and the
-//   Jacobian's live block, rows 0-7 x columns 0-7 and the two controls
-//   (8 x 10).  Rows 8 and 9 (stash_next = u) and columns 8 and 9 (the
-//   stash, which no dynamics reads) are constants, rebuilt by jm().  170
-//   floats, 680 bytes a stage (the full g, Hw and Jm would be 276).  Kernel
-//   3's per-stage costs of the ordered sums reuse the chunk;
+//   gives it) and the Jacobian's live block, rows 0..NX-1 (the model's
+//   fields) x columns 0..NX-1 and the two controls.  The rows of the
+//   previous controls (stash_next = u) and their columns (the stash, which
+//   no dynamics reads) are constants, rebuilt by jm().  The cascaded family
+//   (NX = 8): 170 floats, 680 bytes a stage (the full g, Hw and Jm would be
+//   276); the kinematic family (NX = 6): 113 floats.  Kernel 3's per-stage
+//   costs of the ordered sums reuse the chunk;
 // - the Riccati step's scratch: Vx, Vxx (upper triangle: it is symmetric
 //   by construction), Vxx [A B], Qx and Qu, Qxx, Qux, Quu, K and Quu K:
-//   361 floats;
+//   361 floats (cascaded), 250 (kinematic);
 // - kernel 3's candidate costs (MAX_ALPHA) and the members' partial maxima
 //   (TEAM).
-// TEAM = 4: 1,061 floats, 4,244 bytes a team; a block of 128 threads (32
-// teams) takes 135,808 bytes, one block an SM.
+// TEAM = 4, the cascaded family: 1,061 floats, 4,244 bytes a team; a block
+// of 128 threads (32 teams) takes 135,808 bytes, one block an SM.  The
+// kinematic family: 722 floats, 92,416 bytes a block.
 #pragma once
 
-#include "singletrack.cuh"
+#include "family.cuh"
 
 // The team's width: 4 is the build the wrappers load; the host test and
 // kernel_ab.py also build 8 (-DVCT_TEAM=8).
@@ -46,20 +49,27 @@ constexpr int TEAM = VCT_TEAM;
 static_assert(TEAM >= 1 && TEAM <= 32 && 32 % TEAM == 0, "a team divides a warp");
 constexpr int TEAM_BLOCK = 128;  // threads per block of kernels 2 and 3
 
-// the chunk's slots
-constexpr int JCOLS = 10;                // live Jacobian columns: 0-7, u_Fx, u1
-constexpr int SLOT_G = 0, SLOT_H = NW, SLOT_J = NW + NSYM;
-constexpr int SLOT = SLOT_J + 8 * JCOLS;  // 170
-constexpr int CHUNK = TEAM * SLOT;
-// the Riccati scratch, after the chunk
-constexpr int VSYM = NZ * (NZ + 1) / 2;  // 55
-constexpr int R_VX = CHUNK, R_VXX = R_VX + NZ, R_VA = R_VXX + VSYM, R_Q = R_VA + NZ * NW,
-              R_QXX = R_Q + NW, R_QUX = R_QXX + NZ * NZ, R_QUU = R_QUX + NU * NZ,
-              R_K = R_QUU + NU * NU, R_QK = R_K + NU * NZ, R_END = R_QK + NU * NZ;
-// kernel 3's candidate costs and partial maxima
-constexpr int S_COST = R_END, S_PART = S_COST + MAX_ALPHA;
-constexpr int TEAM_FLOATS = S_PART + TEAM;
-constexpr int TEAM_SMEM_BYTES = TEAM_BLOCK / TEAM * TEAM_FLOATS * (int)sizeof(float);
+// the team's shared area for the family of parameter block P
+template <class P>
+struct TeamLayout {
+  static constexpr int NZ = P::NZ, NU = P::NU, NW = P::NW, NX = P::NX;
+  // the chunk's slots
+  static constexpr int JCOLS = NX + NU;  // live Jacobian columns: the model's fields, the controls
+  static constexpr int SLOT_G = 0, SLOT_H = NW, SLOT_J = NW + P::NSYM;
+  static constexpr int SLOT = SLOT_J + NX * JCOLS;  // 170 cascaded, 113 kinematic
+  static constexpr int CHUNK = TEAM * SLOT;
+  // the Riccati scratch, after the chunk
+  static constexpr int VSYM = NZ * (NZ + 1) / 2;  // 55 cascaded, 36 kinematic
+  static constexpr int R_VX = CHUNK, R_VXX = R_VX + NZ, R_VA = R_VXX + VSYM, R_Q = R_VA + NZ * NW,
+                       R_QXX = R_Q + NW, R_QUX = R_QXX + NZ * NZ, R_QUU = R_QUX + NU * NZ,
+                       R_K = R_QUU + NU * NU, R_QK = R_K + NU * NZ, R_END = R_QK + NU * NZ;
+  // kernel 3's candidate costs and partial maxima
+  static constexpr int S_COST = R_END, S_PART = S_COST + MAX_ALPHA;
+  static constexpr int TEAM_FLOATS = S_PART + TEAM;
+  static constexpr int TEAM_SMEM_BYTES = TEAM_BLOCK / TEAM * TEAM_FLOATS * (int)sizeof(float);
+};
+static_assert(TeamLayout<STParams>::SLOT == 170 && TeamLayout<KinParams>::SLOT == 113,
+              "a stage's slot");
 
 struct Team {
   float* sh;      // the team's shared area, TEAM_FLOATS floats
@@ -99,53 +109,54 @@ VCT_HD void riccati_elements(int t, int count, F&& f) {
 // f(n, KindC<kind>{}) on member t's stages: each segment in chunks of
 // TEAM consecutive stages, member t taking the t-th, so the members of a
 // team are in one segment at a time
-template <class F>
-VCT_HD void for_member_stages(int t, int H, const STParams& p, F&& f) {
+template <class P, class F>
+VCT_HD void for_member_stages(int t, int H, const P& p, F&& f) {
   Segments sg = segments(H, p);
   for (int s = 0; s < sg.count; ++s) {
     int lo = sg.lo[s], hi = sg.hi[s];
-    with_kind(sg.kind[s], [&](auto kc) {
+    with_kind(sg.kind[s], p, [&](auto kc) {
       for (int n = lo + t; n < hi; n += TEAM) f(n, kc);
     });
   }
 }
 
-// packed upper-triangle indices of a symmetric matrix of order NZ (of
-// order NW: sym_w in singletrack.cuh)
-VCT_HD int sym_z(int r, int c) {
-  if (r > c) { int x = r; r = c; c = x; }
-  return r * (2 * NZ - r + 1) / 2 + c - r;
-}
-VCT_HD void unpack_z(int i, int& r, int& c) {
+// the packed upper triangle's (r, c) of its entry i (sym_n<N>)
+template <int N>
+VCT_HD void unpack_n(int i, int& r, int& c) {
   r = 0;
-  while (i >= NZ - r) { i -= NZ - r; ++r; }
+  while (i >= N - r) { i -= N - r; ++r; }
   c = r + i;
 }
 
-// Jm[k][c] of the stage in slot; rows 8 and 9 and columns 8 and 9 are
-// the constants stage_derivs sets for every kind
+// Jm[k][c] of the stage in slot; the rows of the previous controls and
+// their columns are the constants stage_derivs sets for every kind
+template <class P>
 VCT_HD float jm(const float* slot, int k, int c) {
-  if (k >= 8) return c == NZ + (k - 8) ? 1.f : 0.f;
-  if (c == 8 || c == 9) return 0.f;
-  return slot[SLOT_J + k * JCOLS + (c < 8 ? c : c - 2)];
+  using L = TeamLayout<P>;
+  constexpr int NX = P::NX;
+  if (k >= NX) return c == P::NZ + (k - NX) ? 1.f : 0.f;
+  if (c == NX || c == NX + 1) return 0.f;
+  return slot[L::SLOT_J + k * L::JCOLS + (c < NX ? c : c - 2)];
 }
 
 // stage n's derivatives (stage_derivs) into its slot: g, the packed
 // Hessian as stage_derivs gives it, the Jacobian's live block
-template <int K>
+template <int K, class P>
 VCT_HD void derivs_to_slot(int n, int b, int B, int H, const float* X, const float* U,
                            const float* lam, float mu, const float* curv, const float* ds,
-                           float dss, const STParams& p, float* slot) {
+                           float dss, const P& p, float* slot) {
+  using L = TeamLayout<P>;
+  constexpr int NZ = P::NZ, NU = P::NU, NC = P::NC, NW = P::NW, NX = P::NX;
   float wf[NW], lamv[NC], Jm[NZ][NW];
   for (int i = 0; i < NZ; ++i) wf[i] = X[at2(n, i, NZ, b, B)];
   for (int j = 0; j < NU; ++j) wf[NZ + j] = U[at2(n, j, NU, b, B)];
   for (int j = 0; j < NC; ++j) lamv[j] = lam[at2(n, j, NC, b, B)];
   const float dsp = ds[(n > 0 ? n - 1 : 0) * B + b];
   stage_derivs<K>(n, H, wf, lamv, mu, curv[n * B + b], ds[n * B + b], dsp, dss, p,
-                  slot + SLOT_G, slot + SLOT_H, Jm);
-  for (int k = 0; k < 8; ++k)
+                  slot + L::SLOT_G, slot + L::SLOT_H, Jm);
+  for (int k = 0; k < NX; ++k)
     for (int c = 0; c < NW; ++c)
-      if (c != 8 && c != 9) slot[SLOT_J + k * JCOLS + (c < 8 ? c : c - 2)] = Jm[k][c];
+      if (c != NX && c != NX + 1) slot[L::SLOT_J + k * L::JCOLS + (c < NX ? c : c - 2)] = Jm[k][c];
 }
 
 // One Riccati step of stage n from its slot, with the value function (Vx,
@@ -159,23 +170,27 @@ VCT_HD void derivs_to_slot(int n, int b, int B, int H, const float* X, const flo
 // K'Quu k, K'Qu and Qux'k (K'Quu K, K'Qux and Qux'K) as separate sums.  In
 // any other order the single-track gains at the solver's rho0 sat 1.5-3.6x
 // farther from f64 than the plain version's (tests/kernel2_rho0_study.py).
+template <class P>
 VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B, float rho,
                          float* kff, float* kfb, float& dV1, float& dV2, bool& fail) {
+  using L = TeamLayout<P>;
+  constexpr int NZ = P::NZ, NU = P::NU, NW = P::NW, VSYM = L::VSYM;
   float* sh = tm.sh;
-  float *Vx = sh + R_VX, *Vxx = sh + R_VXX, *VA = sh + R_VA, *Q = sh + R_Q;
-  float *Qxx = sh + R_QXX, *Qux = sh + R_QUX, *Quu = sh + R_QUU, *Kg = sh + R_K, *QK = sh + R_QK;
+  float *Vx = sh + L::R_VX, *Vxx = sh + L::R_VXX, *VA = sh + L::R_VA, *Q = sh + L::R_Q;
+  float *Qxx = sh + L::R_QXX, *Qux = sh + L::R_QUX, *Quu = sh + L::R_QUU, *Kg = sh + L::R_K,
+        *QK = sh + L::R_QK;
   phase(tm, [&](int t) {  // Vxx [A B], then Qx and Qu
     riccati_elements(t, NZ * NW + NW, [&](int e) {
       if (e < NZ * NW) {
         int r = e / NW, c = e % NW;
-        float s = Vxx[sym_z(r, 0)] * jm(slot, 0, c);
-        for (int k = 1; k < NZ; ++k) s += Vxx[sym_z(r, k)] * jm(slot, k, c);
+        float s = Vxx[sym_n<NZ>(r, 0)] * jm<P>(slot, 0, c);
+        for (int k = 1; k < NZ; ++k) s += Vxx[sym_n<NZ>(r, k)] * jm<P>(slot, k, c);
         VA[e] = s;
       } else {
         int i = e - NZ * NW;
-        float s = jm(slot, 0, i) * Vx[0];
-        for (int k = 1; k < NZ; ++k) s += jm(slot, k, i) * Vx[k];
-        Q[i] = slot[SLOT_G + i] + s;
+        float s = jm<P>(slot, 0, i) * Vx[0];
+        for (int k = 1; k < NZ; ++k) s += jm<P>(slot, k, i) * Vx[k];
+        Q[i] = slot[L::SLOT_G + i] + s;
       }
     });
   });
@@ -192,9 +207,9 @@ VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B,
         int i = e - NZ * NZ - NU * NZ;
         r = NZ + i / NU, c = NZ + i % NU, out = Quu + i;
       }
-      float s = jm(slot, 0, r) * VA[c];
-      for (int k = 1; k < NZ; ++k) s += jm(slot, k, r) * VA[k * NW + c];
-      *out = slot[SLOT_H + sym_w(r, c)] + s;
+      float s = jm<P>(slot, 0, r) * VA[c];
+      for (int k = 1; k < NZ; ++k) s += jm<P>(slot, k, r) * VA[k * NW + c];
+      *out = slot[L::SLOT_H + sym_n<NW>(r, c)] + s;
     });
   });
   // the 2x2 solve, on every member alike
@@ -237,7 +252,7 @@ VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B,
         return;
       }
       int r, c;
-      unpack_z(e - NZ, r, c);
+      unpack_n<NZ>(e - NZ, r, c);
       auto q = [&](int i, int j) {  // Qxx + K'Quu K + K'Qux + Qux'K at (i, j)
         return Qxx[i * NZ + j] + (Kg[i] * QK[j] + Kg[NZ + i] * QK[NZ + j]) +
                (Kg[i] * Qux[j] + Kg[NZ + i] * Qux[NZ + j]) +
@@ -255,13 +270,16 @@ VCT_HD void riccati_step(const Team& tm, const float* slot, int n, int b, int B,
 // backward one segment at a time, in chunks of up to TEAM stages: the
 // members compute the chunk's stage derivatives at once, one stage each,
 // then the chunk's Riccati steps run in order, last stage first.
+template <class P>
 VCT_HD void backward_sweep(const Team& tm, int b, int B, int H, const float* X, const float* U,
                            const float* lam, float mu, float rho, const float* curv,
                            const float* ds, float* kff, float* kfb, float& dV1_out,
-                           float& dV2_out, bool& fail_out, const STParams& p) {
+                           float& dV2_out, bool& fail_out, const P& p) {
+  using L = TeamLayout<P>;
+  constexpr int NZ = P::NZ;
   float* sh = tm.sh;
   phase(tm, [&](int t) {  // Vx = 0, Vxx = 0
-    for (int i = t; i < NZ + VSYM; i += TEAM) sh[R_VX + i] = 0.f;
+    for (int i = t; i < NZ + L::VSYM; i += TEAM) sh[L::R_VX + i] = 0.f;
   });
   float dV1 = 0.f, dV2 = 0.f;
   bool fail = false;
@@ -274,13 +292,13 @@ VCT_HD void backward_sweep(const Team& tm, int b, int B, int H, const float* X, 
       phase(tm, [&](int t) {
         int n = lo + t;
         if (n < hi)
-          with_kind(kind, [&](auto kc) {
+          with_kind(kind, p, [&](auto kc) {
             derivs_to_slot<decltype(kc)::value>(n, b, B, H, X, U, lam, mu, curv, ds, dss, p,
-                                                tm.sh + t * SLOT);
+                                                tm.sh + t * L::SLOT);
           });
       });
       for (int n = hi - 1; n >= lo; --n)
-        riccati_step(tm, tm.sh + (n - lo) * SLOT, n, b, B, rho, kff, kfb, dV1, dV2, fail);
+        riccati_step<P>(tm, tm.sh + (n - lo) * L::SLOT, n, b, B, rho, kff, kfb, dV1, dV2, fail);
     }
   }
   dV1_out = dV1;
@@ -289,10 +307,11 @@ VCT_HD void backward_sweep(const Team& tm, int b, int B, int H, const float* X, 
 }
 
 // kernel 2: the backward pass of scenario b; dv (2, B), fail_out (B) as 0/1
+template <class P>
 VCT_HD void backward_lane(const Team& tm, int b, int B, int H, const float* X, const float* U,
                           const float* lam, const float* mu, const float* rho,
                           const float* curv, const float* ds, float* kff, float* kfb,
-                          float* dv, float* fail_out, const STParams& p) {
+                          float* dv, float* fail_out, const P& p) {
   float dV1, dV2;
   bool fail;
   backward_sweep(tm, b, B, H, X, U, lam, mu[b], rho[b], curv, ds, kff, kfb, dV1, dV2, fail, p);
@@ -308,26 +327,29 @@ VCT_HD void backward_lane(const Team& tm, int b, int B, int H, const float* X, c
 #if defined(__CUDACC__)
 
 // the calling thread's team: member t of scenario (global thread) / TEAM
+template <class P>
 __device__ __forceinline__ Team make_team(float* smem) {
   const int t = threadIdx.x % TEAM, lane = threadIdx.x & 31;
   const unsigned mask = TEAM == 32 ? 0xffffffffu : ((1u << (TEAM % 32)) - 1u) << (lane - t);
-  return Team{smem + (threadIdx.x / TEAM) * TEAM_FLOATS, mask, t};
+  return Team{smem + (threadIdx.x / TEAM) * TeamLayout<P>::TEAM_FLOATS, mask, t};
 }
 
-// a team kernel may take TEAM_SMEM_BYTES of dynamic shared memory
-template <class Kernel>
+// a team kernel of the family P may take its TEAM_SMEM_BYTES of dynamic
+// shared memory
+template <class P, class Kernel>
 cudaError_t team_smem_setup(Kernel* kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              TEAM_SMEM_BYTES);
+                              TeamLayout<P>::TEAM_SMEM_BYTES);
 }
 
 // the launch shape of a team kernel at B scenarios (kernel_launch_info;
 // the lead number is TEAM)
-template <class Kernel>
+template <class P, class Kernel>
 int team_launch_info(Kernel* kernel, int B, int* out) {
-  cudaError_t rc = team_smem_setup(kernel);
+  cudaError_t rc = team_smem_setup<P>(kernel);
   if (rc != cudaSuccess) return (int)rc;
-  return kernel_launch_info(kernel, TEAM, (long long)B * TEAM, TEAM_BLOCK, TEAM_SMEM_BYTES, out);
+  return kernel_launch_info(kernel, TEAM, (long long)B * TEAM, TEAM_BLOCK,
+                            TeamLayout<P>::TEAM_SMEM_BYTES, out);
 }
 
 #endif

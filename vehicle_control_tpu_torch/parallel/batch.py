@@ -53,14 +53,19 @@ def make_batched_racing_step(problem, solver_cfg, transition, track_data, dt, s_
 
 
 def initial_states(track_length: float, B: int, rng: np.random.Generator,
-                   obstacles=None) -> np.ndarray:
-    """The throughput bench's scenario drop for the dynamic car (bench.py's
-    ``initial_states``): uniform s along the lap, ey in [-1, 1], Ux in
-    [6, 14]; (B, 8) float64.  With ``obstacles`` (the track's (n_obs, 5)
-    table: cx, cy, s, ey, radius), bench.py's ``avoid_obstacles``: a drop
-    within radius + 2 of a disc's centre in the (s, ey) plane is an
-    infeasible start, so those drops are drawn again, up to 50 rounds."""
-    states = np.zeros((B, 8), np.float64)
+                   obstacles=None, ns: int = 8) -> np.ndarray:
+    """The throughput bench's scenario drop (bench.py's ``initial_states``):
+    uniform s along the lap, ey in [-1, 1], and the speed: for the dynamic
+    car (``ns`` = 8) Ux in [6, 14] at fields (s, ey) = (4, 5); for the
+    kinematic car (``ns`` = 6) v in [2, 8] at (2, 3); (B, ns) float64.  With
+    ``obstacles`` (the track's (n_obs, 5) table: cx, cy, s, ey, radius),
+    bench.py's ``avoid_obstacles``: a drop within radius + 2 of a disc's
+    centre in the (s, ey) plane is an infeasible start, so those drops are
+    drawn again, up to 50 rounds."""
+    if ns not in (6, 8):
+        raise ValueError(f"ns = {ns}: the dynamic car has 8 fields, the kinematic car 6")
+    states = np.zeros((B, ns), np.float64)
+    s_i, ey_i = (4, 5) if ns == 8 else (2, 3)
     s = rng.uniform(0, float(track_length), B)
     ey = rng.uniform(-1.0, 1.0, B)
     if obstacles is not None:
@@ -74,7 +79,10 @@ def initial_states(track_length: float, B: int, rng: np.random.Generator,
                 break
             s[bad] = rng.uniform(0, float(track_length), int(bad.sum()))
             ey[bad] = rng.uniform(-1.0, 1.0, int(bad.sum()))
-    states[:, 4] = s
-    states[:, 5] = ey
-    states[:, 0] = 6.0 + rng.uniform(0, 8, B)
+    states[:, s_i] = s
+    states[:, ey_i] = ey
+    if ns == 8:
+        states[:, 0] = 6.0 + rng.uniform(0, 8, B)
+    else:
+        states[:, 0] = 2.0 + rng.uniform(0, 6, B)
     return states

@@ -1,5 +1,6 @@
-"""The racing simulator and its run artifacts (counterpart of
-vehicle_control_tpu/simulation/racing.py).
+"""The racing simulators and their run artifacts (counterpart of
+vehicle_control_tpu/simulation/racing.py): ``RacingSimulator`` (the dynamic
+car) and ``KinematicRacingSimulator`` (the kinematic car).
 
 Controllers race as ghost cars on one track: each runs its closed loop
 (``closed_loop.make_racing_loop``, a batch of one) in chunks to lap
@@ -33,6 +34,7 @@ from vehicle_control_tpu_torch.controllers.mpc.controllers import (
 from vehicle_control_tpu_torch.environment import track as track_mod
 from vehicle_control_tpu_torch.environment.track import Track
 from vehicle_control_tpu_torch.models import dynamic_car as dc
+from vehicle_control_tpu_torch.models import kinematic_car as kc
 from vehicle_control_tpu_torch.simulation.closed_loop import StepRecord, make_racing_loop
 from vehicle_control_tpu_torch.utils.config import load_config, project_root, save_config
 from vehicle_control_tpu_torch.utils.device import DEFAULT_DEVICE, default_dtype, require_device
@@ -45,15 +47,13 @@ def _controller_config_path(name: str) -> str:
 
 def _build_problem(name: str, ctrl_cfg, car_cfg, track, dtype, device):
     """The problem family from the config's shape, as the JAX simulator
-    picks it; the kinematic families are not ported yet."""
+    picks it; the kinematic tail is not ported yet."""
     if "horizon_kc" in ctrl_cfg:
         raise NotImplementedError(
             f"{name}: the kinematic tail (tail='kc') is ROADMAP queue 1, item 4")
-    if "horizon_pm" not in ctrl_cfg:
-        raise NotImplementedError(
-            f"{name}: the kinematic family and KinematicRacingSimulator are ROADMAP "
-            "queue 1, item 5")
-    return problems.build_cascaded_problem(car_cfg, track, ctrl_cfg, "pm", dtype, device)
+    if "horizon_pm" in ctrl_cfg:
+        return problems.build_cascaded_problem(car_cfg, track, ctrl_cfg, "pm", dtype, device)
+    return problems.build_kinematic_problem(car_cfg, track, ctrl_cfg, dtype, device)
 
 
 class _Entry:
@@ -113,7 +113,7 @@ class RacingSimulator:
         self.src_dir = os.path.join(output_dir, "data", f"{self.name}_{trackconfig['name']}_torch")
         self.log_path = os.path.join(output_dir, "logs", f"{self.name}_torch.log")
         self._track_data = self.track.data.to(self.device, self.dtype)
-        transition = dc.make_transitions(dc.DynamicCarParams.from_config(carconfig))[0]
+        transition = self._plant_transition()
         names = list(simconfig.get("controller_names", ["cascaded"]))
         overrides = simconfig.get("controller_overrides", {}) or {}
         self.entries = {}
@@ -129,6 +129,9 @@ class RacingSimulator:
             carry = MPCCarry(*(a[None] for a in initial_carry(problem)))
             self.entries[name] = _Entry(name, problem, run_chunk, carry, self._initial_state(),
                                         ctrl_cfg)
+
+    def _plant_transition(self):
+        return dc.make_transitions(dc.DynamicCarParams.from_config(self.car_config))[0]
 
     def _initial_state(self):
         # Ux=4, s=1: a standing start at the line
@@ -261,9 +264,32 @@ class RacingSimulator:
         in f64 on the host."""
         X = torch.from_numpy(self.pred_traj[name].astype(np.float64))  # (T, H, nz)
         e = self.entries[name]
-        N = int(e.config["horizon"])
-        s = torch.cat([X[:, :N, 4], X[:, N:, 1]], dim=1)
-        ey = torch.cat([X[:, :N, 5], X[:, N:, 2]], dim=1)
-        epsi = torch.cat([X[:, :N, 6], X[:, N:, 3]], dim=1)
+        if "horizon_pm" in e.config:
+            N = int(e.config["horizon"])
+            s = torch.cat([X[:, :N, 4], X[:, N:, 1]], dim=1)
+            ey = torch.cat([X[:, :N, 5], X[:, N:, 2]], dim=1)
+            epsi = torch.cat([X[:, :N, 6], X[:, N:, 3]], dim=1)
+        else:  # the kinematic family
+            s, ey, epsi = X[:, :, 2], X[:, :, 3], X[:, :, 4]
         x, y, psi = track_mod.rel2glob(self.track.data, s, ey, epsi)
         return torch.stack([x, y, psi], dim=-1).numpy()
+
+
+class KinematicRacingSimulator(RacingSimulator):
+    """Kinematic-car racing loop: the kinematic plant and its standing start
+    (v = 0.1, s = 1); the controller ``kinematic`` (``KinematicMPC``'s
+    problem)."""
+
+    model = "kinematic"
+    s_index = 2
+    t_index = 5
+    ey_index = 3
+    speed_index = 0
+
+    def _plant_transition(self):
+        return kc.make_transitions(kc.KinematicCarParams.from_config(self.car_config))[0]
+
+    def _initial_state(self):
+        state = torch.zeros(1, 6, dtype=self.dtype, device=self.device)
+        state[0, 0], state[0, 2] = 0.1, 1.0
+        return state

@@ -52,6 +52,7 @@ class BackwardKernelFM:
         self.family = family
         self.launches = 0
         self._params = cuda_lib.family_params(family)
+        self._entry = cuda_lib.entry(family, "vct_backward_fm")  # the family's instantiation
 
     def __call__(self, X, U, lam, mu, rho, curv, ds):
         if X.device.type == "cpu":
@@ -71,12 +72,12 @@ class BackwardKernelFM:
         kfb = torch.empty(H, NU, NZ, B, **kw)
         dv = torch.empty(2, B, **kw)
         fail = torch.empty(B, **kw)
-        rc = lib.vct_backward_fm(
+        rc = getattr(lib, self._entry)(
             self._params.ctypes.data, *[t.data_ptr() for t in soas],
             kff.data_ptr(), kfb.data_ptr(), dv.data_ptr(), fail.data_ptr(), B, H,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
-        cuda_lib.check_launch(lib, rc, "backward_fm")
+        cuda_lib.check_launch(lib, rc, self._entry)
         self.launches += 1
         return (
             kff.movedim(-1, 0).contiguous(), kfb.movedim(-1, 0).contiguous(),

@@ -2,6 +2,11 @@
 helpers their wrappers share: the parameter block, the struct-of-arrays
 layout and the input checks.
 
+Each kernel has one instantiation a family, its C entry named for it
+(``entry``): ``vct_solve_fm`` and the like for the cascaded family
+(``STParams``, ``PARAM_FIELDS``), ``vct_solve_fm_kin`` and the like for the
+kinematic family (``KinParams``, ``KIN_PARAM_FIELDS``).
+
 The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
 source, all started together, and linked into one shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
@@ -102,6 +107,22 @@ PARAM_FIELDS = (
     "n_obs", "w_obs",
     *(f"obs{i}_{k}" for i in range(MAX_OBS) for k in ("s", "ey", "R")),
 )
+# KinParams field order (csrc/kinematic.cuh)
+KIN_PARAM_FIELDS = (
+    "l",
+    # cost weights
+    "w_time", "w_v", "w_ey", "w_epsi", "w_w", "w_a", "w_dev", "w_boundary",
+    # state and input constraints
+    "v_min", "v_max", "delta_min", "delta_max", "ey_min", "ey_max",
+    "a_min", "a_max", "w_min", "w_max",
+    # rollout control boxes
+    "u0_lo", "u0_hi", "u1_lo", "u1_hi",
+    # the running stages
+    "N",
+    # the obstacle barrier, as PARAM_FIELDS holds it
+    "n_obs", "w_obs",
+    *(f"obs{i}_{k}" for i in range(MAX_OBS) for k in ("s", "ey", "R")),
+)
 
 
 def _nvcc() -> str:
@@ -173,10 +194,27 @@ def host_library(flags=()) -> tuple:
                  os.path.join(CSRC, "host_driver.cpp")]
 
 
+def is_kinematic(family) -> bool:
+    return family.tail == "kinematic"
+
+
+def kin_entry(name: str) -> str:
+    """The kinematic family's instantiation of the C entry ``name``:
+    ``name + "_kin"``, the ``_info`` entries alike (``vct_solve_fm_kin_info``)."""
+    return name[:-5] + "_kin_info" if name.endswith("_info") else name + "_kin"
+
+
+def entry(family, name: str) -> str:
+    """The C entry of kernel ``name`` for the family: the name itself for
+    the cascaded family, ``kin_entry(name)`` for the kinematic family."""
+    return kin_entry(name) if is_kinematic(family) else name
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the library's C interface: name -> (argument types, result type)
 SIGNATURES = {
     "vct_param_count": ([], _I),
+    "vct_kin_param_count": ([], _I),
     "vct_error_string": ([_I], ctypes.c_char_p),
     # (params, alphas, A, xref, uref, kff, kfb, lam, mu, curv, ds, z0, costs, B, H, stream)
     "vct_linesearch_fm": ([_P, _P, _I] + [_P] * 10 + [_I, _I, _P], _I),
@@ -195,6 +233,10 @@ SIGNATURES = {
     "vct_linesearch_fm_info": ([_I, _I, _P], _I),
     "vct_linesearch_aos_info": ([_I, _I, _P], _I),
 }
+SIGNATURES.update({  # the kinematic family's instantiations
+    kin_entry(name): sig for name, sig in list(SIGNATURES.items())
+    if name.startswith(("vct_linesearch", "vct_backward", "vct_solve_fm", "vct_derivs"))
+})
 
 
 def declare(lib: ctypes.CDLL, names=SIGNATURES) -> ctypes.CDLL:
@@ -211,6 +253,8 @@ def load_library() -> ctypes.CDLL:
     lib = declare(ctypes.CDLL(build_library()))
     if lib.vct_param_count() != len(PARAM_FIELDS):
         raise RuntimeError("csrc STParams and PARAM_FIELDS disagree")
+    if lib.vct_kin_param_count() != len(KIN_PARAM_FIELDS):
+        raise RuntimeError("csrc KinParams and KIN_PARAM_FIELDS disagree")
     if lib.vct_solve_config_size() != ctypes.sizeof(SolveConfig):
         raise RuntimeError("csrc SolveConfig and cuda_lib.SolveConfig disagree")
     return lib
@@ -225,6 +269,7 @@ LEADS = {"vct_solve_fm_info": "team", "vct_backward_fm_info": "team",
          "vct_derivs_fm_info": "threads_per_stage",
          "vct_linesearch_fm_info": "scenarios_per_block",
          "vct_linesearch_aos_info": "scenarios_per_block"}
+LEADS.update({kin_entry(k): v for k, v in list(LEADS.items())})
 
 
 def launch_info(fn, *shape) -> dict:
@@ -242,9 +287,47 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}: {lib.vct_error_string(rc).decode()}")
 
 
+def _obstacle_table(family, w) -> dict:
+    """The barrier's fields of the parameter block: n_obs, w_obs and the
+    table of MAX_OBS discs.  A family with more than MAX_OBS discs raises."""
+    if len(family.obstacles) > MAX_OBS:
+        raise ValueError(f"{len(family.obstacles)} obstacles: the kernels' table holds "
+                         f"{MAX_OBS} (csrc/singletrack.cuh: MAX_OBS)")
+    vals = dict(n_obs=len(family.obstacles),
+                w_obs=w.get("obstacles", 0.0) if family.obstacles else 0.0)
+    for i in range(MAX_OBS):
+        so, eo, ro = family.obstacles[i] if i < len(family.obstacles) else (0.0, 0.0, 0.0)
+        # r + 0.1 in Python floats, rounded to f32 once, as the plain
+        # version's f32 tensors round it
+        vals.update({f"obs{i}_s": so, f"obs{i}_ey": eo,
+                     f"obs{i}_R": ro + 0.1 if i < len(family.obstacles) else 0.0})
+    return vals
+
+
+def kin_family_params(family) -> np.ndarray:
+    """The kinematic family's parameters, weights, bounds and obstacle table
+    in KinParams order (f32)."""
+    w, ci, cs = family.weights, family.input_constraints, family.state_constraints
+    vals = dict(
+        l=family.params.l, w_time=w["time"], w_v=w["v"], w_ey=w["ey"], w_epsi=w["epsi"],
+        w_w=w["w"], w_a=w["a"], w_dev=w["deviation"], w_boundary=w["boundary"],
+        v_min=cs["v_min"], v_max=cs["v_max"], delta_min=cs["delta_min"],
+        delta_max=cs["delta_max"], ey_min=cs["ey_min"], ey_max=cs["ey_max"],
+        a_min=ci["a_min"], a_max=ci["a_max"], w_min=ci["w_min"], w_max=ci["w_max"],
+        N=family.N, **_obstacle_table(family, w),
+    )
+    (vals["u0_lo"], vals["u0_hi"]), (vals["u1_lo"], vals["u1_hi"]) = (
+        family.u_box(0, 0), family.u_box(0, 1)
+    )
+    return np.asarray([vals[k] for k in KIN_PARAM_FIELDS], np.float32)
+
+
 def family_params(family) -> np.ndarray:
-    """The family's car parameters, weights, bounds and obstacle table in
-    STParams order (f32).  A family with more than MAX_OBS discs raises."""
+    """The family's parameter block (f32): the car parameters, weights,
+    bounds and obstacle table in STParams order, or KinParams order for the
+    kinematic family.  A family with more than MAX_OBS discs raises."""
+    if is_kinematic(family):
+        return kin_family_params(family)
     p, w = family.params, family.weights
     ci, cs = family.input_constraints, family.state_constraints
     ct = family.tail_constraints or {}
@@ -271,17 +354,7 @@ def family_params(family) -> np.ndarray:
         ey_max_pm=ct.get("ey_max", 0.0), N=family.N, pm=1.0 if pm else 0.0,
     )
     vals["u1_lo_pm"], vals["u1_hi_pm"] = family.u_box(family.H - 1, 1)
-    if len(family.obstacles) > MAX_OBS:
-        raise ValueError(f"{len(family.obstacles)} obstacles: the kernels' table holds "
-                         f"{MAX_OBS} (csrc/singletrack.cuh: MAX_OBS)")
-    vals.update(n_obs=len(family.obstacles), w_obs=w.get("obstacles", 0.0) if family.obstacles
-                else 0.0)
-    for i in range(MAX_OBS):
-        so, eo, ro = family.obstacles[i] if i < len(family.obstacles) else (0.0, 0.0, 0.0)
-        # r + 0.1 in Python floats, rounded to f32 once, as the plain
-        # version's f32 tensors round it
-        vals.update({f"obs{i}_s": so, f"obs{i}_ey": eo,
-                     f"obs{i}_R": ro + 0.1 if i < len(family.obstacles) else 0.0})
+    vals.update(_obstacle_table(family, w))
     return np.asarray([vals[k] for k in PARAM_FIELDS], np.float32)
 
 

@@ -36,6 +36,7 @@ class DerivsKernelFM:
         self.family = family
         self.launches = 0
         self._params = cuda_lib.family_params(family)
+        self._entry = cuda_lib.entry(family, "vct_derivs_fm")  # the family's instantiation
 
     def __call__(self, X, U, lam, mu, curv, ds):
         if X.device.type == "cpu":
@@ -62,10 +63,10 @@ class DerivsKernelFM:
         shapes (H, NW, B), (H, NW, NW, B), (H, NZ, NW, B), allocated."""
         lib = cuda_lib.load_library()
         B, H = soas[3].shape[0], self.family.H
-        rc = lib.vct_derivs_fm(
+        rc = getattr(lib, self._entry)(
             self._params.ctypes.data, *[t.data_ptr() for t in soas],
             *[t.data_ptr() for t in outs], B, H,
             torch.cuda.current_stream(soas[0].device).cuda_stream,
         )
-        cuda_lib.check_launch(lib, rc, "derivs_fm")
+        cuda_lib.check_launch(lib, rc, self._entry)
         self.launches += 1

@@ -21,7 +21,9 @@ sum_i w dsn / max(dist_i - (r_i + 0.1), OBSTACLE_EPS) over the (s, ey)
 distance to each disc's centre, to every stage: on (z[4], z[5]) at the
 single-track stages (the seam's included), on (z[1], z[2]) at the
 point-mass stages.  It is a cost term, not a constraint row.  The kinematic
-tail and the pure kinematic family come later.
+tail comes later.  ``build_kinematic_family`` is the pure kinematic bicycle
+(``configs/controllers/kinematic.yaml``): its own state, its explicit Euler
+step and closed-form stage derivatives (see its docstring).
 
 ``stage_derivs`` is the hand-derived twin of the JAX package's restructured
 exact derivatives, with no autograd in it:
@@ -61,6 +63,7 @@ from vehicle_control_tpu_torch.models import dynamic_car as dc
 from vehicle_control_tpu_torch.solvers import fm_singletrack as fm
 from vehicle_control_tpu_torch.utils import jet as J
 from vehicle_control_tpu_torch.utils.jet import Jet
+from vehicle_control_tpu_torch.utils.math import tan
 
 FORCE_SCALE = fm.FORCE_SCALE
 NONQUAD_ROWS = (3, 6, 7, 8, 9)  # constraint rows in the nonquadratic block
@@ -79,7 +82,8 @@ class FMFamily(NamedTuple):
     ``wf`` everywhere is the tuple of NZ state fields followed by NU control
     fields (solver units); ``lam_read(j)`` and ``ds_read(i)`` read multiplier
     and arc-step fields; ``kv`` is the stage curvature field.  ``N`` is the
-    number of single-track stages (``H`` for ``tail="none"``).
+    number of single-track stages (``H`` for ``tail="none"``), or the running
+    stages of the kinematic family (``tail="kinematic"``, H = N + 1).
     """
 
     NZ: int
@@ -96,7 +100,7 @@ class FMFamily(NamedTuple):
     # (n, wf, lam, mu, kv, ds_read) -> (g (..., NW), Hw (..., NW, NW),
     # J (..., NZ, NW)): Hw unsymmetrized, Hw[r, c] = d2L/dw_r dw_c
     stage_derivs: Callable
-    params: dc.DynamicCarParams
+    params: object  # dc.DynamicCarParams, or KinematicCarParams for the kinematic family
     weights: dict
     input_constraints: dict
     state_constraints: dict
@@ -416,5 +420,228 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
         NZ=NZ, NU=NU, NC=NC, H=H, N=N, tail=tail, al_cost=al_cost, dyn=dyn, u_box=u_box,
         stage_cost=stage_cost, constraints=constraints, stage_derivs=stage_derivs,
         params=p, weights=w, input_constraints=ci, state_constraints=cs, tail_constraints=ct,
+        obstacles=rows,
+    )
+
+
+# -- the pure kinematic family ---------------------------------------------------------
+
+# The kinematic bicycle's regularized spatial step (problems.
+# _regularized_spatial): the clamps of delta, ey and epsi, then the
+# softplus-floored 1/s_dot.  The pure kinematic family's (problems.
+# build_kinematic_problem): |delta| <= 1, |ey| <= 8, |epsi| <= 1.2, a floor
+# far below the 0.1 m/s standing start and a sharp beta; the kc tail's
+# differ (JAX: fm_family._kc_prime's arguments).
+KIN_CLAMPS = {1: (-1.0, 1.0), 3: (-8.0, 8.0), 4: (-1.2, 1.2)}
+KIN_FLOOR, KIN_BETA = 0.02, 50.0
+KC_PRIME_COLS = (0, 1, 3, 4)  # the state fields kc_prime reads: v, delta, ey, epsi
+
+
+def kc_prime(x6, a, w, k, l, floor=KIN_FLOOR, beta=KIN_BETA, clamps=KIN_CLAMPS):
+    """Kinematic-bicycle d(state)/ds of the clamped state (v, delta, s, ey,
+    epsi, t), with the softplus-floored 1/s_dot (the JAX package's
+    fm_family._kc_prime; ``clamps`` maps a field to its (lo, hi))."""
+    x6 = list(x6)
+    for i, (lo, hi) in clamps.items():
+        x6[i] = J.clip(x6[i], lo, hi)
+    v, delta, s, ey, epsi, t = x6
+    s_dot = (v * torch.cos(epsi)) / (1.0 - ey * k)
+    ey_dot = v * torch.sin(epsi)
+    epsi_dot = v * tan(delta) / l - s_dot * k
+    inv = 1.0 / (floor + J.softplus0(beta * (s_dot - floor)) / beta)
+    return [a * inv, w * inv, torch.ones_like(s_dot), ey_dot * inv, epsi_dot * inv, inv]
+
+
+def kc_prime_jacobian(x6, a, w, k, l, floor=KIN_FLOOR, beta=KIN_BETA, clamps=KIN_CLAMPS):
+    """``kc_prime`` and its partials in closed form: (prime, D), D[r][c] the
+    partial of prime field r over the state fields c of KC_PRIME_COLS, then
+    "a" and "w" (a dict; absent entries are zero).  The clamps' partials
+    take JAX's tie rule (half at a bound), the softplus floor's slope is
+    exp(y - softplus(y)) as JAX's logaddexp gives it."""
+    cg = {i: J._tie_weight(x6[i], lo) * J._tie_weight(hi, J._vmax(x6[i], lo))
+          for i, (lo, hi) in clamps.items()}
+    v, delta, ey, epsi = (J.clip(x6[i], *clamps[i]) if i in clamps else x6[i]
+                          for i in (0, 1, 3, 4))
+    cg0 = cg.get(0, 1.0)  # the kc tail clamps v, the kinematic family not
+    ce, se = torch.cos(epsi), torch.sin(epsi)
+    den = 1.0 - ey * k
+    s_dot = (v * ce) / den
+    ey_dot = v * se
+    td = tan(delta)
+    epsi_dot = v * td / l - s_dot * k
+    y = beta * (s_dot - floor)
+    sp = J.softplus0(y)
+    inv = 1.0 / (floor + sp / beta)
+    dinv = -(inv * inv) * torch.exp(y - sp)  # d inv / d s_dot
+    # s_dot, ey_dot and epsi_dot over (v, delta, ey, epsi)
+    dsd = {0: cg0 * (ce / den), 3: cg[3] * (s_dot * k / den), 4: cg[4] * (-(v * se) / den)}
+    dey = {0: cg0 * se, 4: cg[4] * (v * ce)}
+    dep = {0: cg0 * (td / l) - k * dsd[0], 1: cg[1] * (v * (1.0 + td * td) / l),
+           3: -k * dsd[3], 4: -k * dsd[4]}
+    prime = [a * inv, w * inv, torch.ones_like(s_dot), ey_dot * inv, epsi_dot * inv, inv]
+    D = {(0, "a"): inv, (1, "w"): inv}
+    for c, ds_c in dsd.items():
+        tinv = dinv * ds_c
+        D[(0, c)] = a * tinv
+        D[(1, c)] = w * tinv
+        D[(5, c)] = tinv
+        D[(3, c)] = dey.get(c, 0.0) * inv + ey_dot * tinv
+        D[(4, c)] = dep[c] * inv + epsi_dot * tinv
+    D[(4, 1)] = dep[1] * inv
+    return prime, D
+
+
+def build_kinematic_family(car_config, cfg, track_data=None) -> FMFamily:
+    """Field-wise twin of problems.build_kinematic_problem: the pure
+    kinematic bicycle (``configs/controllers/kinematic.yaml``), H = N + 1
+    stages.  The solver state is z = [v, delta, s, ey, epsi, t, a_prev,
+    w_prev] (NZ = 8), the controls (a, w) in physical units (NU = 2).  The
+    running stages n < N carry the boundary, deviation and w costs, the
+    a-slew against z[6] on 1 <= n < N and, with ``cfg["obstacles"]``, the
+    barrier on (s, ey) = (z[2], z[3]); seven linear box rows (v floor, the
+    steering box, the a and w boxes; the state rows masked at n = 0) and
+    three padding rows; the regularized explicit Euler step with the
+    steering stop.  Stage N carries the terminal cost (the speed hinge v >=
+    v_max, time, ey^2, epsi^2), no constraint and holds its state.
+
+    ``stage_derivs`` is in closed form: every cost and constraint row is
+    linear, quadratic or a hinge in the fields but the barrier, whose
+    gradient and (s, ey) Hessian block come from second-order jets over (s,
+    ey); the Euler step's Jacobian is ``kc_prime_jacobian`` chained through
+    the steering stop.  The JAX package differentiates this family by
+    generic autodiff (``stage_derivs_cols``, no fast path)."""
+    from vehicle_control_tpu_torch.models import kinematic_car as kc
+
+    p = kc.KinematicCarParams.from_config(car_config)
+    l = p.l
+    N = int(cfg["horizon"])
+    H = N + 1
+    NZ, NU, NC = 8, 2, 10
+    NW = NZ + NU
+    w = {k: float(v) for k, v in cfg["cost_weights"].items()}
+    ci = {k: float(v) for k, v in cfg["input_constraints"].items()}
+    cs = {k: float(v) for k, v in cfg["state_constraints"].items()}
+    rows = _obstacle_rows(track_data, bool(cfg.get("obstacles", False)))
+    w_obs = w.get("obstacles", 0.0)
+    # the linear rows: (row, field, slope) of c = slope * field + const
+    box_rows = ((0, 0, -1.0), (1, 1, 1.0), (2, 1, -1.0), (3, NZ, 1.0), (4, NZ, -1.0),
+                (5, NZ + 1, 1.0), (6, NZ + 1, -1.0))
+
+    def stage_cost(n, wf, kv, ds_read):
+        v, delta, s, ey, epsi, t = wf[:6]
+        if n >= N:  # terminal
+            over = torch.where(v >= cs["v_max"], (v - cs["v_max"]) ** 2, 0.0)
+            return w["v"] * over + w["time"] * t + w["ey"] * ey**2 + w["epsi"] * epsi**2
+        a_act, w_act = wf[NZ], wf[NZ + 1]
+        dsn = ds_read(n)
+        cost = fm.boundary_fields(ey, dsn, w["boundary"], cs["ey_min"], cs["ey_max"])
+        cost = cost + w["deviation"] * dsn * ey**2
+        cost = cost + w["w"] * w_act**2
+        if n >= 1:  # a-slew against the previous action (no ds factor)
+            cost = cost + w["a"] * (a_act - wf[6]) ** 2
+        if rows:
+            cost = cost + _obstacles_std(rows, s, ey, dsn, w_obs)
+        return cost
+
+    def constraints(n, wf):
+        if n >= N:
+            return [-1.0] * NC
+        v, delta, a_act, w_act = wf[0], wf[1], wf[NZ], wf[NZ + 1]
+        c = [cs["v_min"] - v, delta - cs["delta_max"], cs["delta_min"] - delta,
+             a_act - ci["a_max"], ci["a_min"] - a_act, w_act - ci["w_max"],
+             ci["w_min"] - w_act] + [-1.0] * 3
+        if n == 0:
+            # the state-only rows are undecidable at the fixed stage-0 state
+            # (problems._mask_stage0_state_rows)
+            c[:3] = [-1.0, -1.0, -1.0]
+        return c
+
+    def al_cost(n, wf, lam_read, mu, kv, ds_read):
+        return stage_cost(n, wf, kv, ds_read) + fm.al_penalty_fields(
+            constraints(n, wf), lam_read, mu
+        )
+
+    def dyn(n, wf, kv, ds_read):
+        x6 = list(wf[:6])
+        if n < N:
+            h = ds_read(n)
+            prime = kc_prime(x6, wf[NZ], wf[NZ + 1], kv, l)
+            x6 = [x + h * q for x, q in zip(x6, prime)]
+            # steering stop on the integrated delta (problems._sat_col)
+            x6[1] = J.clip(x6[1], cs["delta_min"], cs["delta_max"])
+        return tuple(x6) + (wf[NZ], wf[NZ + 1])
+
+    def u_box(n, j):
+        if j == 0:
+            return ci["a_min"], ci["a_max"]
+        return ci["w_min"], ci["w_max"]
+
+    def stage_derivs(n, wf, lam, mu, kv, ds_read):
+        ref = wf[0]
+        for f in tuple(wf[1:]) + (kv, mu):
+            ref = ref + 0.0 * f  # common broadcast shape of every input
+        zero = torch.zeros_like(ref)
+        dt = zero.dtype
+        g = zero.new_zeros(zero.shape + (NW,))
+        Hw = zero.new_zeros(zero.shape + (NW, NW))
+        Jm = zero.new_zeros(zero.shape + (NZ, NW))
+        for i in range(6):
+            Jm[..., i, i] = 1.0
+        Jm[..., 6, NZ] = 1.0  # stash_next = u
+        Jm[..., 7, NZ + 1] = 1.0
+        v, ey, epsi = wf[0], wf[3], wf[4]
+        if n >= N:  # terminal: the speed hinge, time, ey^2, epsi^2; the state held
+            live = (v >= cs["v_max"]).to(dt)
+            g[..., 0] = w["v"] * (2.0 * (v - cs["v_max"])) * live + zero
+            g[..., 3] = w["ey"] * (2.0 * ey) + zero
+            g[..., 4] = w["epsi"] * (2.0 * epsi) + zero
+            g[..., 5] = w["time"] + zero
+            Hw[..., 0, 0] = (2.0 * w["v"]) * live + zero
+            Hw[..., 3, 3] = 2.0 * w["ey"] + zero
+            Hw[..., 4, 4] = 2.0 * w["epsi"] + zero
+            return g, Hw, Jm
+        dsn = ds_read(n)
+        # the linear rows: slope max(0, lam + mu c) and curvature mu * active
+        c_all = constraints(n, wf)
+        for r, i, sl in box_rows:
+            if n == 0 and r < 3:
+                continue
+            x = lam[r] + mu * c_all[r]
+            g[..., i] += sl * torch.clamp_min(x, 0.0)
+            Hw[..., i, i] += mu * _active(x, dt)
+        blo, bhi = (ey < cs["ey_min"]).to(dt), (ey > cs["ey_max"]).to(dt)
+        g[..., 3] += (w["boundary"] * dsn * (blo * (2.0 * (ey - cs["ey_min"]))
+                                            + bhi * (2.0 * (ey - cs["ey_max"])))
+                      + (w["deviation"] * dsn) * (2.0 * ey))
+        Hw[..., 3, 3] += 2.0 * w["boundary"] * dsn * (blo + bhi) + 2.0 * w["deviation"] * dsn
+        g[..., NZ + 1] += w["w"] * (2.0 * wf[NZ + 1])
+        Hw[..., NZ + 1, NZ + 1] += 2.0 * w["w"]
+        if n >= 1:  # the a-slew
+            slew = w["a"] * (2.0 * (wf[NZ] - wf[6]))
+            g[..., NZ] += slew
+            g[..., 6] -= slew
+            for r, c, sgn in ((NZ, NZ, 1.0), (6, 6, 1.0), (NZ, 6, -1.0), (6, NZ, -1.0)):
+                Hw[..., r, c] += sgn * (2.0 * w["a"])
+        if rows:  # the barrier's gradient and (s, ey) block from second-order jets
+            se = Jet.seed([wf[2], ey], second=True)
+            bar = _obstacles_std(rows, se[0], se[1], dsn, w_obs)
+            g[..., 2:4] += bar.d.expand(zero.shape + (2,))
+            Hw[..., 2:4, 2:4] += bar.h.expand(zero.shape + (2, 2))
+        # the Euler step's Jacobian, row 1 through the steering stop
+        h = dsn
+        prime, D = kc_prime_jacobian(list(wf[:6]), wf[NZ], wf[NZ + 1], kv, l)
+        stop = J._tie_weight(wf[1] + h * prime[1], cs["delta_min"]) * J._tie_weight(
+            cs["delta_max"], J._vmax(wf[1] + h * prime[1], cs["delta_min"]))
+        cols = {c: c for c in KC_PRIME_COLS}
+        cols.update(a=NZ, w=NZ + 1)
+        for (r, c), dv in D.items():
+            Jm[..., r, cols[c]] += h * dv
+        Jm[..., 1, :] *= stop.unsqueeze(-1) + 0.0 * zero.unsqueeze(-1)
+        return g, Hw, Jm
+
+    return FMFamily(
+        NZ=NZ, NU=NU, NC=NC, H=H, N=N, tail="kinematic", al_cost=al_cost, dyn=dyn, u_box=u_box,
+        stage_cost=stage_cost, constraints=constraints, stage_derivs=stage_derivs,
+        params=p, weights=w, input_constraints=ci, state_constraints=cs, tail_constraints=None,
         obstacles=rows,
     )

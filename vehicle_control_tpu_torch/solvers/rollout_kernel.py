@@ -30,5 +30,5 @@ class LinesearchKernelAoS(LinesearchKernelFM):
     ``launches`` counts the CUDA launches; the plain path does not count.
     """
 
-    _entry = "vct_linesearch_aos"
+    _kernel = "vct_linesearch_aos"
     _layout = staticmethod(lambda t: t)

@@ -59,7 +59,7 @@ class LinesearchKernelFM:
     ``launches`` counts the CUDA launches; the plain path does not count.
     """
 
-    _entry = "vct_linesearch_fm"  # the kernel's C entry point
+    _kernel = "vct_linesearch_fm"  # the kernel's C entry point (cuda_lib.entry)
     _layout = staticmethod(cuda_lib.soa)  # (B, ...) input -> the layout it reads
 
     def __init__(self, family, alphas):
@@ -69,6 +69,7 @@ class LinesearchKernelFM:
         self.alphas = [float(a) for a in alphas]
         self.launches = 0
         self._params = cuda_lib.family_params(family)
+        self._entry = cuda_lib.entry(family, self._kernel)  # the family's instantiation
         self._alphas = np.asarray(self.alphas, np.float32)
 
     def __call__(self, Xref, Uref, kffs, Kfbs, lam, mu, curv, ds, z0):

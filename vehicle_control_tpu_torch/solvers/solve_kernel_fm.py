@@ -191,6 +191,7 @@ class SolveKernelFM:
         self.launches = 0
         self._params = cuda_lib.family_params(family)
         self._solve_cfg = cuda_lib.solve_config(cfg)
+        self._entry = cuda_lib.entry(family, "vct_solve_fm")  # the family's instantiation
 
     def __call__(self, z0, U_init, lam_init, curv, ds, trace=False):
         if z0.device.type == "cpu":
@@ -212,13 +213,13 @@ class SolveKernelFM:
         kff = torch.empty(H, NU, B, **kw)  # scratch: the gains of the last backward pass
         kfb = torch.empty(H, NU, NZ, B, **kw)
         stats = torch.empty(cuda_lib.SOLVE_STATS, B, **kw)
-        rc = lib.vct_solve_fm(
+        rc = getattr(lib, self._entry)(
             self._params.ctypes.data, ctypes.addressof(self._solve_cfg),
             *[t.data_ptr() for t in soas], X.data_ptr(), U.data_ptr(), lam.data_ptr(),
             kff.data_ptr(), kfb.data_ptr(), stats.data_ptr(), B, H,
             torch.cuda.current_stream(z0.device).cuda_stream,
         )
-        cuda_lib.check_launch(lib, rc, "solve_fm")
+        cuda_lib.check_launch(lib, rc, self._entry)
         self.launches += 1
         out = (
             X.movedim(-1, 0).contiguous(), U.movedim(-1, 0).contiguous(),

@@ -19,6 +19,7 @@ from vehicle_control_tpu_torch.controllers.mpc.controllers import MPCCarry
 from vehicle_control_tpu_torch.controllers.mpc.problems import HorizonParams
 from vehicle_control_tpu_torch.environment.track import TrackData
 from vehicle_control_tpu_torch.models.dynamic_car import DynamicCarParams
+from vehicle_control_tpu_torch.models.kinematic_car import KinematicCarParams
 from vehicle_control_tpu_torch.utils.device import DEFAULT_DEVICE, require_device
 
 
@@ -45,13 +46,22 @@ def car_params(fields: Mapping[str, np.ndarray]) -> DynamicCarParams:
     )
 
 
+def kin_car_params(fields: Mapping[str, np.ndarray]) -> KinematicCarParams:
+    """KinematicCarParams from the JAX dataclass's (scalar) fields."""
+    return KinematicCarParams(
+        **{f.name: float(fields[f.name]) for f in dataclasses.fields(KinematicCarParams)}
+    )
+
+
 def mpc_carry(X_pred, U_pred, lam, device=DEFAULT_DEVICE, dtype=torch.float64) -> MPCCarry:
-    """MPCCarry from (B, H, nz), (B, H, nu) and (B, H, nc) arrays."""
+    """MPCCarry from (B, H, nz), (B, H, nu) and (B, H, nc) arrays (any
+    family's: the kinematic problem's nz is 8)."""
     return MPCCarry(*(tensor(a, device, dtype) for a in (X_pred, U_pred, lam)))
 
 
 def horizon_params(curvature, ds, device=DEFAULT_DEVICE, dtype=torch.float64) -> HorizonParams:
-    """HorizonParams from the per-stage (B, H) curvature and arc-step arrays."""
+    """HorizonParams from the per-stage (B, H) curvature and arc-step arrays
+    (any family's: the kinematic problem's H = N + 1)."""
     return HorizonParams(tensor(curvature, device, dtype), tensor(ds, device, dtype))
 
 
