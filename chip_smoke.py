@@ -3,7 +3,7 @@
 Builds the five CUDA kernels from ``vehicle_control_tpu_torch/csrc`` with
 nvcc (one process per source, all at once) and prints each kernel's
 registers and stack, and for kernels 1-4 their launch shape (threads per
-launch, shared memory per block, resident warps per SM).  Then it runs four
+launch, shared memory per block, resident warps per SM).  Then it runs five
 families at the bench's protocol (B=4096, f32, K=10 steps per chunk, states
 from ``initial_states`` seed 0 with their aligned carries):
 
@@ -20,7 +20,11 @@ from ``initial_states`` seed 0 with their aligned carries):
   as shipped, N=50 running stages and the terminal stage, obstacles on,
   budget 2 x 3, 6 steps, mu0=10; the kinematic car's drops, v in [2, 8],
   clear of the discs), on the kernels' instantiation for its own parameter
-  block (``_kin`` entries).
+  block (``_kin`` entries);
+* the kc cascade (bench.py's ``cascaded_kinematic``:
+  ``cascaded_kinematic.yaml``, ``tail="kc"``: N=20 single-track and 20
+  kinematic-bicycle stages, H=40, obstacles off, budget 3 x 8 + 6 polish,
+  6 steps, mu0=300), on its own instantiation (``_kc`` entries).
 
 For each family it holds kernels 1 (line search), 2 (backward pass), 4
 (stage derivatives), 5 (the line search in the array-of-structs layout,
@@ -34,8 +38,11 @@ drives the main path (the whole solve
 in one launch, kernel 3), 1 warm and 3 timed chunks, with exactly one
 kernel-3 launch per step and nothing else, profiles one main-path step,
 counts each kernel's work and times each kernel against its plain version
-(kernels 1, 4 and 5 as the launch alone and with their wrappers).  For the
-single-track and the kinematic family it also drives the per-phase route
+(kernels 1, 4 and 5 as the launch alone and with their wrappers; kernel
+3's plain version, the plain whole solve, alone on the card for the
+families of SOLVE_PLAIN_ALONE, and for every family as the checks' step
+ran it, beside the other families' processes: ``sv_plain_shared_ms``).
+For the single-track and the kinematic family it also drives the per-phase route
 (kernels 1 + 2) and the derivatives route (kernel 4, the torch Riccati
 sweep, kernel 1), 1 warm and 1 timed chunk of 1 step each, with their
 launch counts.  Kernel 5 sits
@@ -58,12 +65,20 @@ each disc on is printed beside the JAX lap's (the choice is multi-modal,
 so it is not gated); its violations stay at most 1e-2, or else the lap is
 replayed to the step of its largest violation and kernel 3 there is held
 against the plain whole solve in f32 and f64, that violation included.
-Last, the kinematic lap:
+Then the kinematic lap:
 ``KinematicRacingSimulator`` from the simconfig with the ``kinematic``
 controller (f32, kernel 3 at B=1 and the YAML's budget) laps ippodromo,
 its lap time within 0.25 s of the JAX f64 kinematic lap, its violations at
 most 1e-2, one kernel-3 launch a step, and kernel 3 on the inputs of its
-steps 0, 100 and 200 against the plain whole solve in f32 and f64.
+steps 0, 100 and 200 against the plain whole solve in f32 and f64.  Last,
+the kc lap: ``RacingSimulator`` from the simconfig with the
+``cascaded_kinematic`` controller (f32, kernel 3 at B=1 and the YAML's
+active budget, 4 x 12): the JAX f64 lap of this controller leaves the road
+past s = 200 m and completes no lap (tests/cascaded_kinematic_lap_study.py),
+so the port's run is held to its split time at s = 200 m within 0.25 s and
+its violations up to there at most 1e-2, one kernel-3 launch a step, and
+kernel 3 on the inputs of its steps 0, 100 and 200 against the plain whole
+solve in f32 and f64.
 
     python3 chip_smoke.py
 
@@ -101,7 +116,11 @@ FAMILIES = {  # controller config, tail, its overrides, budget (bench.py's famil
                                 mu_scale=100.0, recover_viol=0.5)),
     "kinematic": ("kinematic.yaml", "kinematic", dict(obstacles=True),
                   dict(n_outer=2, n_inner=3, n_alpha=6, mu0=10.0)),
+    "cascaded_kinematic": ("cascaded_kinematic.yaml", "kc", dict(horizon=20, horizon_kc=20),
+                           dict(n_outer=3, n_inner=8, n_polish=6, n_alpha=6, mu0=300.0)),
 }
+# the simulator's laps (``simulator_lap``, ``simulator_obstacles_lap``)
+LAPS = ("cascaded", "obstacles", "kinematic", "cascaded_kinematic")
 # the families that also drive the two earlier routes (kernels 1 + 2, and
 # kernel 4 with kernel 1), cut in depth
 SIDE_ROUTES = ("singletrack", "kinematic")
@@ -167,16 +186,24 @@ ULP_COPIES = 64  # copies of a disputed rollout's inputs, one f32 ulp apart
 # The kinematic family's 51-stage horizons run into the same discs (PERF.md:
 # 1 rollout of 24,576 beyond LS_RTOL, kernel 2 30 lanes at rho = 1 and 11
 # at rho0, check (i) 213 of 4,096; kernel 4 none, it keeps its direct gate).
+# The kc cascade's kinematic tail brings the kinematic bicycle's steering
+# stop and box rows, and its acceleration, whose curvature is only the PHR
+# rows' where the a-slew's mask is dead, leaves many Riccati steps not PD at
+# rho0 (PERF.md: kernel 2 15 lanes at rho = 1 and 40 at rho0, check (i) 16
+# of 4,096; kernels 1, 5 and 4 none, they keep their direct gates).
 FAMILY_SHARES = {
     "cascaded_obstacles": dict(rtol=WITNESS_SHARE, kernel2=1e-2, kernel4=1e-2, solve=5e-2),
     "kinematic": dict(rtol=WITNESS_SHARE, kernel2=1e-2, solve=1e-1),
+    "cascaded_kinematic": dict(rtol=WITNESS_SHARE, kernel2=2e-2, solve=1e-2),
 }
 # The gates of a family where a lane that f64 on its inputs gives to the
 # plain version is decided on the inputs and ULP_COPIES copies of them one
 # ulp apart (``copies_side``): check (i) ("solve") on the obstacle cascade;
 # check (i) and kernel 2 on the kinematic family (PERF.md: 1 lane of check
-# (i), 1 of kernel 2 at each regularization).
-FAMILY_COPIES = {"cascaded_obstacles": ("solve",), "kinematic": ("solve", "kernel2")}
+# (i), 1 of kernel 2 at each regularization) and on the kc cascade (PERF.md:
+# 4 lanes of check (i), 2 of kernel 2 at rho = 1).
+FAMILY_COPIES = {"cascaded_obstacles": ("solve",), "kinematic": ("solve", "kernel2"),
+                 "cascaded_kinematic": ("solve", "kernel2")}
 # Kernel 3, (i) one outer x one inner iteration at rho0 = RHO_WELL: the
 # chosen step is identical on >= STEP_SAME of the lanes, and on those X, U
 # (per lane, of the lane's magnitude) and cost (relative) agree to SOLVE_TOL.
@@ -199,16 +226,27 @@ STEP_SAME = 0.999
 CONV_GAP, FLIP_MAX, COST_MEDIAN, ITER_WITHIN2 = 0.02, 0.02, 1e-4, 0.95
 CONV_FLOOR = 0.90  # sanity gate on the converged fraction, not a target
 # the kernels timed median of REPS; the plain versions once, without a
-# warm-up (they ran on the same shapes in the checks); the plain whole
-# solve once, in check (ii)
+# warm-up (they ran on the same shapes in the checks)
 REPS, PLAIN_REPS = 20, 1
+# The plain whole solve (kernel 3's plain version) takes 8 s (kinematic) to
+# 3.5 minutes (the obstacle cascade) at B=4096: each family's is timed as
+# the checks' closed-loop step runs it (``start_warm``: five such processes
+# and the checks share the card and the host), and only these families'
+# again, alone on the card, for its ``plain_ms`` (the others' is null)
+SOLVE_PLAIN_ALONE = ("kinematic", "cascaded_kinematic")
+# the family whose numbers stand at the top of each kernel in the kernels
+# line (the slice that added it; ``per_family`` has every family's)
+TOP_FAMILY = "cascaded_kinematic"
 # Check (ii)'s plain solve in f64 of the families named here runs on the CPU
-# on their first lanes (all B but on the obstacle cascade), in CPU_WORKERS
-# processes beside the card's phases: the plain whole solve is launch-bound
-# on the card at any B (~1.5-2 minutes for the single track and the cascade
-# in each precision, ~3-5 for the obstacle cascade's 36 inner iterations),
-# and six CPU processes take B=4096 lanes of the single track in about one.
-CPU_F64_LANES, CPU_WORKERS = {"singletrack": B, "cascaded": B, "cascaded_obstacles": 1024}, 6
+# on their first 1024 lanes, in one pool of CPU_WORKERS processes shared by
+# the families, beside the card's phases: the plain whole solve is
+# launch-bound on the card at any B (~1.5-2 minutes for the single track and
+# the cascade in each precision, ~3-5 for the obstacle cascade's 36 inner
+# iterations), and six CPU processes take B=4096 lanes of the single track
+# in about one.
+CPU_F64_LANES = {"singletrack": 1024, "cascaded": 1024, "cascaded_obstacles": 1024,
+                 "cascaded_kinematic": 1024}
+CPU_WORKERS = 6
 # the card's published peaks (H100 SXM data sheet): f32 outside the tensor
 # cores and HBM bandwidth, for each kernel's bound
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -230,6 +268,17 @@ LAP_REF_S, LAP_TOL_S, LAP_VIOL_MAX = 20.85, 0.25, 1e-2
 # violation), its violations at most LAP_VIOL_MAX; the first actions on its
 # SNAP_STEPS as the cascade lap's.
 KIN_LAP_REF_S = 18.75
+# The kc lap: the simconfig with the cascaded_kinematic controller through
+# RacingSimulator, KC_LAP_MAX_STEPS steps (20 s of race: past the split and
+# past where the JAX lap runs wide).  The JAX f64 lap of this
+# controller (tests/cascaded_kinematic_lap_study.py: step 276 at t = 13.80
+# s past s = 200 m, its violations up to there at most 1.09e-3) runs wide
+# past s ~ 222 m (|ey| beyond the dynamics' 8 m clamp, KC_EY_WIDE, then up
+# to 37 m) and completes no lap in 800 steps, so the port's run is held to
+# the split time at KC_SPLIT_M (the t of the first state past it) within
+# LAP_TOL_S of the JAX lap's KC_SPLIT_REF_S, and to violations at most
+# LAP_VIOL_MAX up to there; past the split it is printed, not gated.
+KC_SPLIT_M, KC_SPLIT_REF_S, KC_EY_WIDE, KC_LAP_MAX_STEPS = 200.0, 13.80, 8.0, 400
 # The obstacle lap: the same simulator with obstacles on, at most
 # OBS_LAP_MAX_STEPS steps; its lap time within OBS_LAP_TOL (relative) of the
 # JAX package's f64 obstacle lap in OBS_REF_RUN (553 steps), every disc
@@ -256,7 +305,12 @@ ACTION_TOL, ACTION_FLOOR = 1e-3, 1e-5
 LAP_SHARES = {"kinematic_vs_plain": 1 / len(SNAP_STEPS)}
 
 
+_T0 = time.perf_counter()
+
+
 def phase(label, **fields):
+    """One phase's line, with the seconds since the script started (t_s)."""
+    fields["t_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{label}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -733,7 +787,7 @@ def load_count_build(path, proc):
         os.replace(proc.args[-1], path)
     lib = ctypes.CDLL(path)
     P, I = ctypes.c_void_p, ctypes.c_int
-    for suffix in ("", "_kin"):  # the cascaded family's entries, the kinematic family's
+    for suffix in ("", "_kin", "_kc"):  # the cascaded family's, the kinematic, the kc
         getattr(lib, "vct_host_derivs" + suffix).argtypes = [P] * 10 + [I, I]
         getattr(lib, "vct_host_backward" + suffix).argtypes = [P] + [P] * 11 + [I, I]
     lib.vct_host_ops.restype = ctypes.c_double
@@ -847,7 +901,9 @@ def family_problem(label, env):
     budget = FAMILIES[label][3]
     problem = build_problem(label, car, env["track"], torch.float32, env["dev"], env["root"])
     fam = problem.family
-    shape = (dict(B=B, N=fam.N, M=fam.H - fam.N) if fam.tail == "pm" else dict(B=B, H=fam.H))
+    shape = (dict(B=B, N=fam.N, M=fam.H - fam.N) if fam.tail == "pm"
+             else dict(B=B, N=fam.N, horizon_kc=fam.H - fam.N) if fam.tail == "kc"
+             else dict(B=B, H=fam.H))
     if fam.obstacles:
         shape["discs"] = len(fam.obstacles)
     cfg = ALILQRConfig(**budget, use_solve_kernel=True)
@@ -912,9 +968,71 @@ def warm_inputs(label, problem, cfg, env):
                 first=(plain.inputs, plain.outputs, plain.ms))
 
 
+def _walk(obj, leaf, fn):
+    """``obj`` with every leaf of type ``leaf`` in its tuples, named tuples,
+    lists and dicts replaced by fn(leaf)."""
+    if isinstance(obj, leaf):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _walk(v, leaf, fn) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_walk(v, leaf, fn) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_walk(v, leaf, fn) for v in obj)
+    return obj
+
+
+def warm_worker(label):
+    """``warm_inputs`` of the family ``label`` on the card, in a process of
+    its own (``start_warm``): its tensors as numpy arrays."""
+    torch.set_num_threads(1)
+    env = make_env(torch.device(DEVICE, 0))
+    problem, _, cfg, _, _ = family_problem(label, env)
+    w = warm_inputs(label, problem, cfg, env)
+    torch.cuda.synchronize()
+    return _walk(w, torch.Tensor, lambda t: t.cpu().numpy())
+
+
+def start_warm(labels):
+    """Start each family's ``warm_inputs`` in a process of its own, all at
+    once, beside the build and the other families' checks: its closed-loop
+    step of the plain whole solve is launch-bound torch, one host thread
+    each, so the processes overlap on the card; each solve's time is taken
+    there, shared (``sv_plain_shared_ms``).  Returns the pool and the futures for ``warm_of`` and ``warm_barrier``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(len(labels), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {label: pool.submit(warm_worker, label) for label in labels}
+
+
+def warm_of(label, env):
+    """The family's checks' inputs, from its ``start_warm`` process."""
+    dev = env["dev"]
+    return _walk(env["warm"][1][label].result(), np.ndarray,
+                 lambda a: torch.from_numpy(a).to(dev))
+
+
+def warm_barrier(env):
+    """Wait for every ``start_warm`` process before a timed phase, so that
+    no other process shares the card while it is timed; stop the pool."""
+    pool, futures = env["warm"]
+    if pool is None:
+        return
+    t0 = time.perf_counter()
+    ms = {label: f.result()["first"][2] for label, f in futures.items()}
+    pool.shutdown()
+    env["warm"] = (None, futures)
+    phase("warm_inputs", processes=len(futures), waited_s=f"{time.perf_counter() - t0:.1f}",
+          **{f"{label}_plain_solve_shared_ms": f"{v:.0f}" for label, v in ms.items()})
+
+
 def run_family(label, env):
-    """Checks, main path, profile, timings and bounds of one family; returns
-    its numbers for the kernels line."""
+    """Checks, main path, profile, timings and bounds of one family, in two
+    parts: a generator whose first ``next`` runs the checks (which share the
+    card with the other families' ``start_warm`` processes) and whose second
+    runs the timed phases, alone on the card, and yields the family's
+    numbers for the kernels line."""
     from vehicle_control_tpu_torch.parallel.batch import make_batched_racing_step
     from vehicle_control_tpu_torch.solvers import cuda_lib
     from vehicle_control_tpu_torch.solvers.al_ilqr import ALILQRConfig
@@ -959,9 +1077,10 @@ def run_family(label, env):
     # kernel inputs from a real warm-started state that no kernel computed:
     # one closed-loop step of the plain whole solve, then the next solve's
     # inputs and its first backward pass and line search
-    w = warm_inputs(label, problem, cfg, env)
+    w = warm_of(label, env)
     if label in CPU_F64_LANES:  # check (ii)'s f64 solve, beside the card's phases
-        f64_jobs = start_cpu_solves(env["root"], label, cfg, w["first"][0], CPU_F64_LANES[label])
+        f64_jobs = start_cpu_solves(env["cpu_pool"], env["root"], label, cfg, w["first"][0],
+                                    CPU_F64_LANES[label])
     carry1, states1, z0, U_init, U, X, lam, mu, curv, ds = (
         w[k] for k in ("carry1", "states1", "z0", "U_init", "U", "X", "lam", "mu", "curv", "ds"))
 
@@ -1054,7 +1173,7 @@ def run_family(label, env):
     launch_shapes = dict(ls=info("vct_linesearch_fm_info", B, len(alphas)),
                          aos=info("vct_linesearch_aos_info", B, len(alphas)),
                          dv=info("vct_derivs_fm_info", B, H))
-    if cuda_lib.is_kinematic(fam):
+    if cuda_lib.entry_suffix(fam):  # the family's own instantiation of kernels 2 and 3
         launch_shapes.update(bw=info("vct_backward_fm_info", B), sv=info("vct_solve_fm_info", B))
     for key, name, lead in (("ls", "linesearch_fm", dict(A=len(alphas))),
                             ("aos", "linesearch_aos", dict(A=len(alphas))),
@@ -1145,7 +1264,7 @@ def run_family(label, env):
     # of the checks' closed-loop step: kernel 3 and the plain f32 version
     # (the step's own solve, also the plain version's timed run) against the
     # plain version in f64 on the same inputs
-    first_args, first_ref, sv_plain_ms = w["first"]
+    first_args, first_ref, sv_plain_shared_ms = w["first"]
     first_got = solve_kernel(*first_args, trace=True)
 
     def check_ii():
@@ -1176,6 +1295,7 @@ def run_family(label, env):
                                f"ls_fast_path={fast} changed an output bit")
     phase(f"{label}:kernel3_exits_bitwise", configs="early_exit x ls_fast_path", identical=True)
 
+    yield  # the checks are done; the timed phases follow, alone on the card
     # the main path: kernel 3 alone, K steps per chunk
     carry, states, times, conv_frac = drive(
         main_step, carry1, states1, wrappers, {solve_kernel: 1}, K, 1 + TIMED_CHUNKS,
@@ -1256,13 +1376,15 @@ def run_family(label, env):
         ls=cuda_ms(lambda: linesearch_costs_plain(fam, alphas, *ls_args), PLAIN_REPS, warm=False),
         bw=cuda_ms(lambda: backward_plain(fam, *bw_args), PLAIN_REPS, warm=False),
         dv=cuda_ms(lambda: derivs_plain(fam, *dv_args), PLAIN_REPS, warm=False),
-        sv=sv_plain_ms,
+        sv=(cuda_ms(lambda: solve_plain(fam, cfg, *first_args), 1, warm=False)
+            if label in SOLVE_PLAIN_ALONE else None),
     )
     plain_ms["aos"] = plain_ms["ls"]
-    phase(f"{label}:timing", median_of=REPS, plain_median_of=PLAIN_REPS, solve_plain_runs=1,
+    phase(f"{label}:timing", median_of=REPS, plain_median_of=PLAIN_REPS,
           **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
           **{f"{k}_wrapper_ms": f"{v:.3f}" for k, v in wrapper_ms.items()},
-          **{f"{k}_plain_ms": f"{v:.3f}" for k, v in plain_ms.items()})
+          **{f"{k}_plain_ms": "null" if v is None else f"{v:.3f}" for k, v in plain_ms.items()},
+          sv_plain_shared_ms=f"{sv_plain_shared_ms:.3f}")
 
     # each kernel's bound: its bytes (inputs read once, outputs written
     # once) and its operations over OP_COUNT_LANES lanes, scaled to B:
@@ -1308,10 +1430,11 @@ def run_family(label, env):
         out[k]["wrapper_ms"] = v
     for k, v in launch_shapes.items():
         out[k]["launch"] = v
+    out["sv"]["plain_shared_ms"] = sv_plain_shared_ms
     out["sv"]["lane_ops"] = dict(backward=ops_bw, candidate=ops_cand)
     if label in CPU_F64_LANES:
         check_ii()
-    return out
+    yield out
 
 
 def family_ctrl(label, root):
@@ -1343,29 +1466,21 @@ def plain_solve_cpu(root, label, cfg, dtype_name, inputs):
     return [o.numpy() for o in out[:7]] + [out[7][k].numpy() for k in ("first_alpha", "inner_runs")]
 
 
-def start_cpu_solves(root, label, cfg, inputs, lanes):
-    """Start the plain whole solve in f64 of the first ``lanes`` lanes of
-    ``inputs`` on the CPU, split over CPU_WORKERS processes; returns the
-    pool and the futures for ``cpu_solves_result``."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    pool = ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+def start_cpu_solves(pool, root, label, cfg, inputs, lanes):
+    """Submit to ``pool`` the plain whole solve in f64 of the first
+    ``lanes`` lanes of ``inputs`` on the CPU, split in CPU_WORKERS parts;
+    returns the futures for ``cpu_solves_result``."""
     lanes = min(lanes, inputs[0].shape[0])
     host = [t[:lanes].cpu().numpy() for t in inputs]
     cuts = np.linspace(0, lanes, CPU_WORKERS + 1).astype(int)
-    return pool, [pool.submit(plain_solve_cpu, root, label, cfg, "float64",
-                              [a[lo:hi] for a in host]) for lo, hi in zip(cuts, cuts[1:])]
+    return [pool.submit(plain_solve_cpu, root, label, cfg, "float64", [a[lo:hi] for a in host])
+            for lo, hi in zip(cuts, cuts[1:])]
 
 
-def cpu_solves_result(jobs, dev):
+def cpu_solves_result(futures, dev):
     """The outputs of ``start_cpu_solves``'s solves, joined, on ``dev`` as
-    ``solve_plain(trace=True)`` gives them; stops its processes."""
-    pool, futures = jobs
-    try:
-        parts = [f.result() for f in futures]
-    finally:
-        pool.shutdown(cancel_futures=True)
+    ``solve_plain(trace=True)`` gives them."""
+    parts = [f.result() for f in futures]
     out = [torch.as_tensor(np.concatenate(p)).to(dev) for p in zip(*parts)]
     return tuple(out[:7]) + (dict(first_alpha=out[7], inner_runs=out[8]),)
 
@@ -1379,8 +1494,8 @@ def plain_first_action(car, track_cfg, ctrl, cfg, dtype_name, inputs):
     """The plain whole solve (``solve_plain``) of one scenario on the CPU in
     ``dtype_name``: (its first action in physical units, its violation,
     seconds).  The simulator's controller: the cascade (``horizon_pm`` in
-    its config) or the kinematic family.  Runs in a process of its own
-    (``simulator_kernel3_vs_plain``)."""
+    its config), the kc cascade (``horizon_kc``) or the kinematic family.
+    Runs in a process of its own (``simulator_kernel3_vs_plain``)."""
     torch.set_num_threads(1)
     from vehicle_control_tpu_torch.controllers.mpc import problems
     from vehicle_control_tpu_torch.environment.track import Track
@@ -1389,7 +1504,8 @@ def plain_first_action(car, track_cfg, ctrl, cfg, dtype_name, inputs):
 
     dtype = getattr(torch, dtype_name)
     args = (ConfigDict(car), Track(ConfigDict(track_cfg)), ConfigDict(ctrl))
-    prob = (problems.build_cascaded_problem(*args, "pm", dtype, "cpu") if "horizon_pm" in ctrl
+    tail = "pm" if "horizon_pm" in ctrl else "kc" if "horizon_kc" in ctrl else None
+    prob = (problems.build_cascaded_problem(*args, tail, dtype, "cpu") if tail
             else problems.build_kinematic_problem(*args, dtype, "cpu"))
     t0 = time.perf_counter()
     out = solve_plain(prob.family, cfg, *(torch.as_tensor(a).to(dtype) for a in inputs))
@@ -1402,13 +1518,15 @@ def same_arrays(a, b):
     return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
-def simulator_lap(env, kinematic=False):
+def simulator_lap(env, tag="cascaded"):
     """[simulator:cascaded_lap]: the simconfig's lap through RacingSimulator
-    on the card, or with ``kinematic`` [simulator:kinematic_lap]: the
+    on the card; with ``tag`` "kinematic" [simulator:kinematic_lap]: the
     simconfig with the kinematic controller through KinematicRacingSimulator
-    (the kinematic car); returns the simulator, its controller's name, the
-    snapshots (step -> (state, carry)) of SNAP_STEPS and the lap's numbers
-    for the kernels line."""
+    (the kinematic car); with "cascaded_kinematic"
+    [simulator:cascaded_kinematic_lap]: the simconfig with that controller
+    through RacingSimulator, held to its split at KC_SPLIT_M.  Returns the
+    simulator, its controller's name, the snapshots (step -> (state,
+    carry)) of SNAP_STEPS and the lap's numbers for the kernels line."""
     from vehicle_control_tpu_torch.controllers.mpc.controllers import MPCCarry
     from vehicle_control_tpu_torch.simulation import KinematicRacingSimulator, RacingSimulator
     from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM
@@ -1416,12 +1534,13 @@ def simulator_lap(env, kinematic=False):
     from vehicle_control_tpu_torch.utils.profiling import StepTimer
 
     root = env["root"]
-    tag, ref_s = ("kinematic", KIN_LAP_REF_S) if kinematic else ("cascaded", LAP_REF_S)
+    kinematic, kc = tag == "kinematic", tag == "cascaded_kinematic"
+    ref_s = dict(kinematic=KIN_LAP_REF_S, cascaded=LAP_REF_S).get(tag)
     simcfg = load_config(f"{root}/configs/simconfig.yaml")
     simcfg.update(save_data=False, logging=False,
                   output_dir=os.path.join(root, "build", "simulator"))
-    if kinematic:
-        simcfg["controller_names"] = ["kinematic"]
+    if tag != "cascaded":
+        simcfg["controller_names"] = [tag]
     track_cfg = load_config(f"{root}/configs/environment/{simcfg['track_name']}.yaml")
     sim = (KinematicRacingSimulator(simcfg, env["kin_car"], track_cfg) if kinematic
            else RacingSimulator(simcfg, env["car"], track_cfg))
@@ -1451,7 +1570,7 @@ def simulator_lap(env, kinematic=False):
     snaps = {0: snapshot()}
     solve_kernel.launches = 0
     t0 = time.perf_counter()
-    for stop in (*SNAP_STEPS[1:], LAP_MAX_STEPS):
+    for stop in (*SNAP_STEPS[1:], KC_LAP_MAX_STEPS if kc else LAP_MAX_STEPS):
         sim.run(max_steps=stop, chunk=LAP_CHUNK)
         if stop in SNAP_STEPS:
             if entry.steps != stop:
@@ -1473,7 +1592,8 @@ def simulator_lap(env, kinematic=False):
               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     solve_ms = sum(e.device_time_total for e in events if "solve_fm" in e.key) / 1e3
-    phase("simulator:kinematic_profile" if kinematic else "simulator:profile", step_ms_profiled=f"{prof_ms:.2f}", device_busy_ms=f"{busy_ms:.3f}",
+    phase("simulator:profile" if tag == "cascaded" else f"simulator:{tag}_profile",
+          step_ms_profiled=f"{prof_ms:.2f}", device_busy_ms=f"{busy_ms:.3f}",
           kernel3_ms=f"{solve_ms:.3f}", other_device_ms=f"{busy_ms - solve_ms:.3f}",
           device_launches=sum(e.count for e in events),
           busy_share=f"{busy_ms / prof_ms:.4f}")
@@ -1489,100 +1609,126 @@ def simulator_lap(env, kinematic=False):
     sim.load(path)
     reloaded = all(same_arrays(getattr(sim, k)[name], v) for k, v in saved.items()) and \
         same_arrays(np.load(os.path.join(path, f"{name}_preds.npy")), preds)
+    split = {}
+    if kc:  # the split at KC_SPLIT_M, where the JAX f64 lap is still on the road
+        past = np.nonzero(st[:, sim.s_index] >= KC_SPLIT_M)[0]
+        wide = np.nonzero(np.abs(st[:, sim.ey_index]) > KC_EY_WIDE)[0]
+        split = dict(split_m=KC_SPLIT_M, split_step=int(past[0]) if len(past) else -1,
+                     split_t_s=float(st[past[0], sim.t_index]) if len(past) else float("nan"),
+                     ref_split_t_s=KC_SPLIT_REF_S,
+                     max_violation_to_split=float(viol[:past[0] + 1].max()) if len(past) else
+                     float("nan"),
+                     first_wide_step=int(wide[0]) if len(wide) else -1,
+                     s_at_first_wide=float(st[wide[0], sim.s_index]) if len(wide) else -1.0,
+                     s_end=float(st[-1, sim.s_index]))
     phase(f"simulator:{tag}_lap", controller=name, track=sim.track.name,
           dtype=str(sim.dtype).removeprefix("torch."), chunk=LAP_CHUNK,
           lap_completed=entry.done, lap_time_s=f"{lap_time:.4f}", ref_lap_time_s=ref_s,
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in split.items()},
           lap_steps=len(st), steps_run=entry.steps, kernel3_launches=launches,
           median_step_ms=f"{steps_ms['p50_ms']:.2f}", p95_step_ms=f"{steps_ms['p95_ms']:.2f}",
           mean_step_ms=f"{steps_ms['mean_ms']:.2f}", lap_wall_s=f"{lap_s:.1f}",
           max_violation=f"{viol.max():.3e}", iterations_mean=f"{sim.iter_traj[name].mean():.2f}",
           preds_finite=bool(np.isfinite(preds).all()), reloaded_bitwise=reloaded,
           sync_check_steps=SYNC_CHECK_STEPS)
-    if not entry.done:
-        raise RuntimeError(f"the {tag} lap did not complete in {LAP_MAX_STEPS} steps")
-    if not abs(lap_time - ref_s) <= LAP_TOL_S:
-        raise RuntimeError(f"{tag} lap time {lap_time:.4f} s, the JAX f64 lap {ref_s} s")
-    if not viol.max() <= LAP_VIOL_MAX:
-        raise RuntimeError(f"{tag} lap: max violation {viol.max():.3e} > {LAP_VIOL_MAX}")
+    if kc:
+        if not abs(split["split_t_s"] - KC_SPLIT_REF_S) <= LAP_TOL_S:
+            raise RuntimeError(f"{tag}: split time at {KC_SPLIT_M} m {split['split_t_s']:.4f} s, "
+                               f"the JAX f64 lap's {KC_SPLIT_REF_S} s")
+        if not split["max_violation_to_split"] <= LAP_VIOL_MAX:
+            raise RuntimeError(f"{tag}: max violation to the split "
+                               f"{split['max_violation_to_split']:.3e} > {LAP_VIOL_MAX}")
+    else:
+        if not entry.done:
+            raise RuntimeError(f"the {tag} lap did not complete in {LAP_MAX_STEPS} steps")
+        if not abs(lap_time - ref_s) <= LAP_TOL_S:
+            raise RuntimeError(f"{tag} lap time {lap_time:.4f} s, the JAX f64 lap {ref_s} s")
+        if not viol.max() <= LAP_VIOL_MAX:
+            raise RuntimeError(f"{tag} lap: max violation {viol.max():.3e} > {LAP_VIOL_MAX}")
     if launches != entry.steps:
         raise RuntimeError(f"kernel 3 launched {launches} times in {entry.steps} steps")
     if not reloaded or not np.isfinite(preds).all():
         raise RuntimeError("the reloaded artifacts are not the saved ones, or preds not finite")
     return sim, name, snaps, dict(launches=launches, steps=entry.steps, lap_time_s=lap_time,
+                                  lap_completed=bool(entry.done),
                                   median_step_ms=steps_ms["p50_ms"],
-                                  p95_step_ms=steps_ms["p95_ms"])
+                                  p95_step_ms=steps_ms["p95_ms"], lap_wall_s=lap_s, **split)
 
 
-def simulator_kernel3_vs_plain(env, laps):
+def submit_vs_plain(pool, env, lap):
+    """Submit to ``pool`` the plain whole solve in f32 and f64 on the CPU of
+    each snapshot of ``lap`` (simulator, controller name, snapshots step ->
+    (state, carry), ...); returns (the setup, the futures) for
+    ``simulator_kernel3_vs_plain``."""
+    from vehicle_control_tpu_torch.controllers.mpc.controllers import controller_solver_config
+
+    sim, name, snaps = lap[:3]
+    entry = sim.entries[name]
+    prob, cfg = entry.problem, controller_solver_config(entry.config)
+    track_cfg = load_track_config(env["root"], sim.track.name)
+    inputs, jobs = {}, {}
+    for k, (state, carry) in snaps.items():
+        params, z0 = prob.init_horizon(state, carry.X_pred, carry.U_pred)
+        inputs[k] = tuple(t.contiguous() for t in (z0, carry.U_pred, carry.lam,
+                                                   params.curvature, params.ds))
+        host = [t.cpu().numpy() for t in inputs[k]]
+        for dtype in ("float32", "float64"):
+            jobs[k, dtype] = pool.submit(plain_first_action, sim.car_config.to_dict(), track_cfg,
+                                         entry.config.to_dict(), cfg, dtype, host)
+    return (sim, name, prob, cfg, inputs), jobs
+
+
+def simulator_kernel3_vs_plain(env, laps, submitted):
     """Kernel 3 at B=1 at the simulator's budget on the inputs of lap steps,
     beside the plain whole solve in f32 and f64 on the CPU (one process
-    each, all at once).  ``laps``: phase label -> (simulator, controller
+    each, ``submit_vs_plain``'s, started once every lap had run:
+    ``submitted``, label -> its setup and futures).  ``laps``: phase label -> (simulator, controller
     name, snapshots step -> (state, carry), the family's per-lane operation
     counts for the B=1 bound or None); [simulator:kernel3_vs_plain] (the
-    obstacle-free lap's SNAP_STEPS) and [simulator:kinematic_vs_plain] (the
-    kinematic lap's), each with kernel 3's B=1 launch time (CUDA events)
+    obstacle-free lap's SNAP_STEPS), [simulator:kinematic_vs_plain] (the
+    kinematic lap's) and [simulator:cascaded_kinematic_vs_plain] (the kc
+    lap's), each with kernel 3's B=1 launch time (CUDA events)
     and bound, the first action held to ACTION_TOL; and
     [simulator:obstacles_worst_step] (the obstacle lap's step of its largest
     violation: the actions printed, the violations for
     ``obstacle_violation_gate``).  Returns each label's numbers for the
     kernels line (those with operation counts) and every label's rows."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    from vehicle_control_tpu_torch.controllers.mpc.controllers import controller_solver_config
     from vehicle_control_tpu_torch.solvers import cuda_lib
     from vehicle_control_tpu_torch.solvers.solve_kernel_fm import SolveKernelFM
 
-    workers = 2 * sum(len(snaps) for _, _, snaps, _ in laps.values())
     out = {}
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        jobs, setup = {}, {}
-        for label, (sim, name, snaps, _) in laps.items():
-            entry = sim.entries[name]
-            prob, cfg = entry.problem, controller_solver_config(entry.config)
-            track_cfg = load_track_config(env["root"], sim.track.name)
-            inputs = {}
-            for k, (state, carry) in snaps.items():
-                params, z0 = prob.init_horizon(state, carry.X_pred, carry.U_pred)
-                inputs[k] = tuple(t.contiguous() for t in (z0, carry.U_pred, carry.lam,
-                                                           params.curvature, params.ds))
-                host = [t.cpu().numpy() for t in inputs[k]]
-                for dtype in ("float32", "float64"):
-                    jobs[label, k, dtype] = pool.submit(
-                        plain_first_action, sim.car_config.to_dict(), track_cfg,
-                        entry.config.to_dict(), cfg, dtype, host)
-            setup[label] = (sim, name, prob, cfg, inputs)
-        for label, (sim, name, prob, cfg, inputs) in setup.items():
-            kern = SolveKernelFM(prob.family, cfg)  # its own count: these launches compare only
-            scale = np.maximum(np.sqrt((sim.action_traj[name].astype(np.float64) ** 2).mean(0)),
-                               1e-12)
-            rows, errs, kms, runs, viols, action_errs = {}, [], [], [], {}, []
-            for k, ins in inputs.items():
-                got = kern(*ins, trace=True)
-                a_k = (got[1][0, 0] * prob.u_scale[0]).double().cpu().numpy()
-                v_k = float(got[4][0])
-                runs.append(int(got[7]["inner_runs"][0]))
-                kms.append(cuda_ms(lambda: kern(*ins)))
-                (a_p, v_p, s_p), (a_64, v_64, s_64) = (
-                    jobs[label, k, d].result() for d in ("float32", "float64"))
-                e_k, e_p = (float((np.abs(a - a_64) / scale).max()) for a in (a_k, a_p))
-                ok = e_k <= ACTION_TOL or e_k <= e_p + ACTION_FLOOR
-                viols[k] = (v_k, v_p, v_64)
-                errs.append(float(np.abs(a_k - a_p).max()))
-                fmt = lambda a: "/".join(f"{v:.7g}" for v in a)  # noqa: E731
-                rows[f"step{k}"] = (f"kernel:{fmt(a_k)},plain_f32:{fmt(a_p)},f64:{fmt(a_64)},"
-                                    f"err_kernel:{e_k:.3e},err_plain_f32:{e_p:.3e},"
-                                    f"violation:{v_k:.4g}/{v_p:.4g}/{v_64:.4g},"
-                                    f"inner_runs:{runs[-1]},kernel_ms:{kms[-1]:.3f},"
-                                    f"plain_cpu_s:{s_p:.1f}/{s_64:.1f},pass:{ok}")
-                action_errs.append((e_k, e_p, ok))
-                if not ok and laps[label][3] is not None and label not in LAP_SHARES:
-                    raise RuntimeError(f"{label} step {k}: kernel 3's first action {a_k} is "
-                                       f"{e_k:.3e} from f64's {a_64} (plain f32 {a_p}: {e_p:.3e})")
-            if label in LAP_SHARES:
-                rows["witness"] = action_witness(label, action_errs)
-            out[label] = dict(prob=prob, cfg=cfg, inputs=inputs, rows=rows, errs=errs, kms=kms,
-                              runs=runs, viols=viols, scale=scale)
+    for label in laps:
+        (sim, name, prob, cfg, inputs), jobs = submitted[label]
+        kern = SolveKernelFM(prob.family, cfg)  # its own count: these launches compare only
+        scale = np.maximum(np.sqrt((sim.action_traj[name].astype(np.float64) ** 2).mean(0)),
+                           1e-12)
+        rows, errs, kms, runs, viols, action_errs = {}, [], [], [], {}, []
+        for k, ins in inputs.items():
+            got = kern(*ins, trace=True)
+            a_k = (got[1][0, 0] * prob.u_scale[0]).double().cpu().numpy()
+            v_k = float(got[4][0])
+            runs.append(int(got[7]["inner_runs"][0]))
+            kms.append(cuda_ms(lambda: kern(*ins)))
+            (a_p, v_p, s_p), (a_64, v_64, s_64) = (
+                jobs[k, d].result() for d in ("float32", "float64"))
+            e_k, e_p = (float((np.abs(a - a_64) / scale).max()) for a in (a_k, a_p))
+            ok = e_k <= ACTION_TOL or e_k <= e_p + ACTION_FLOOR
+            viols[k] = (v_k, v_p, v_64)
+            errs.append(float(np.abs(a_k - a_p).max()))
+            fmt = lambda a: "/".join(f"{v:.7g}" for v in a)  # noqa: E731
+            rows[f"step{k}"] = (f"kernel:{fmt(a_k)},plain_f32:{fmt(a_p)},f64:{fmt(a_64)},"
+                                f"err_kernel:{e_k:.3e},err_plain_f32:{e_p:.3e},"
+                                f"violation:{v_k:.4g}/{v_p:.4g}/{v_64:.4g},"
+                                f"inner_runs:{runs[-1]},kernel_ms:{kms[-1]:.3f},"
+                                f"plain_cpu_s:{s_p:.1f}/{s_64:.1f},pass:{ok}")
+            action_errs.append((e_k, e_p, ok))
+            if not ok and laps[label][3] is not None and label not in LAP_SHARES:
+                raise RuntimeError(f"{label} step {k}: kernel 3's first action {a_k} is "
+                                   f"{e_k:.3e} from f64's {a_64} (plain f32 {a_p}: {e_p:.3e})")
+        if label in LAP_SHARES:
+            rows["witness"] = action_witness(label, action_errs)
+        out[label] = dict(prob=prob, cfg=cfg, inputs=inputs, rows=rows, errs=errs, kms=kms,
+                          runs=runs, viols=viols, scale=scale)
     # kernel 3's bound at B=1: the family's per-lane counts by the inner
     # iterations these lanes ran (``run_family``'s bounds)
     numbers = {}
@@ -1796,6 +1942,7 @@ def main() -> int:
     # 2. build, each kernel's registers and stack, and the launch shape of
     # the team kernels (2 and 3) at B with their residency per SM
     t0 = time.perf_counter()
+    warm = start_warm(FAMILIES)  # the families' checks' inputs, beside the build
     count_build = start_count_build()  # g++, beside nvcc
     lib_path = cuda_lib.build_library()
     lib = cuda_lib.load_library()
@@ -1807,20 +1954,49 @@ def main() -> int:
         phase(f"launch:{'backward_fm' if key == 'bw' else 'solve_fm'}", B=B, **info)
     env = make_env(dev)
     env["count_lib"] = load_count_build(*count_build)
-    results = {}
-    for label in FAMILIES:
+    env["warm"] = warm
+    # every family's checks, in the order their start_warm processes end,
+    # beside those processes and check (ii)'s f64 solves on the CPU; then,
+    # once all of these are done, every family's timed phases alone on the
+    # card and the host
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+
+    results, parts = {}, {label: run_family(label, env) for label in FAMILIES}
+    labels = {f: label for label, f in warm[1].items()}
+    with ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        env["cpu_pool"] = pool
+        for f in as_completed(labels):
+            t_fam = time.perf_counter()
+            next(parts[labels[f]])
+            phase(f"{labels[f]}:checks_seconds", seconds=f"{time.perf_counter() - t_fam:.1f}")
+    warm_barrier(env)
+    for label, part in parts.items():
         t_fam = time.perf_counter()
-        results[label] = run_family(label, env)
-        phase(f"{label}:seconds", seconds=f"{time.perf_counter() - t_fam:.1f}")
+        results[label] = next(part)
+        phase(f"{label}:timed_seconds", seconds=f"{time.perf_counter() - t_fam:.1f}")
     t_sim = time.perf_counter()
-    sim, sim_name, snaps, lap = simulator_lap(env)
-    obs_sim, obs_name, obs_snaps, obs_lap = simulator_obstacles_lap(env)
-    kin_sim, kin_name, kin_snaps, kin_lap = simulator_lap(env, kinematic=True)
-    b1, compared = simulator_kernel3_vs_plain(
-        env, {"kernel3_vs_plain": (sim, sim_name, snaps, results["cascaded"]["sv"]["lane_ops"]),
-              "obstacles_worst_step": (obs_sim, obs_name, obs_snaps, None),
-              "kinematic_vs_plain": (kin_sim, kin_name, kin_snaps,
-                                     results["kinematic"]["sv"]["lane_ops"])})
+    # each lap alone, its seconds; then the plain solves of its steps on the
+    # CPU, and kernel 3 against them (the lap's family's lane counts for its
+    # B=1 bound)
+    ran, compare, submitted = {}, {}, {}
+    for tag in LAPS:
+        t_lap = time.perf_counter()
+        if tag == "obstacles":
+            ran[tag] = simulator_obstacles_lap(env)
+            compare["obstacles_worst_step"] = ran[tag][:3] + (None,)
+        else:
+            ran[tag] = simulator_lap(env, tag)
+            label = "kernel3_vs_plain" if tag == "cascaded" else f"{tag}_vs_plain"
+            compare[label] = ran[tag][:3] + (results[tag]["sv"]["lane_ops"],)
+        phase(f"simulator:{tag}_lap_seconds", seconds=f"{time.perf_counter() - t_lap:.1f}")
+    t_cmp = time.perf_counter()
+    with ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for label, lap in compare.items():
+            submitted[label] = submit_vs_plain(pool, env, lap)
+        b1, compared = simulator_kernel3_vs_plain(env, compare, submitted)
+    phase("simulator:vs_plain_seconds", seconds=f"{time.perf_counter() - t_cmp:.1f}")
+    obs_lap = ran["obstacles"][3]
     worst = compared["obstacles_worst_step"]["viols"]
     obs_lap["worst_step_violation"] = {k: dict(kernel=v[0], plain_f32=v[1], f64=v[2])
                                        for k, v in worst.items()}
@@ -1828,8 +2004,8 @@ def main() -> int:
     phase("simulator:seconds", seconds=f"{time.perf_counter() - t_sim:.1f}")
 
     def row(key, kname, src, replaces):
-        per = {label: results[label][key] for label in FAMILIES}
-        top = dict(per["cascaded_obstacles"])  # the slice's path; per_family has all
+        per = {label: results[label][key] for label in results}
+        top = dict(per[TOP_FAMILY])
         top["launches"] = sum(p["launches"] for p in per.values())
         return dict(name=kname, route="cuda", source=f"vehicle_control_tpu_torch/csrc/{src}",
                     replaces=f"vehicle_control_tpu/solvers/{replaces}",
@@ -1846,12 +2022,15 @@ def main() -> int:
         row("aos", "linesearch_aos", "rollout_aos.cu", "rollout_kernel.py:63"),
     ]
     # the simulator's laps are kernel 3's other paths: their launches join the
-    # count (the kinematic lap's the kinematic family's too)
-    kernels[2]["launches"] += lap["launches"] + obs_lap["launches"] + kin_lap["launches"]
-    kernels[2]["per_family"]["kinematic"]["launches"] += kin_lap["launches"]
-    kernels[2]["simulator_lap"] = dict(lap, **b1["kernel3_vs_plain"])
-    kernels[2]["simulator_obstacles_lap"] = obs_lap
-    kernels[2]["simulator_kinematic_lap"] = dict(kin_lap, **b1["kinematic_vs_plain"])
+    # count (the kinematic lap's the kinematic family's too, the kc lap's the
+    # kc cascade's)
+    for tag, (_, _, _, numbers) in ran.items():
+        kernels[2]["launches"] += numbers["launches"]
+        if tag in ("kinematic", "cascaded_kinematic"):
+            kernels[2]["per_family"][tag]["launches"] += numbers["launches"]
+        label = "kernel3_vs_plain" if tag == "cascaded" else f"{tag}_vs_plain"
+        key = "simulator_lap" if tag == "cascaded" else f"simulator_{tag}_lap"
+        kernels[2][key] = dict(numbers, **b1.get(label, {}))
     missing = unlaunched(kernels)
     if missing:
         raise RuntimeError(f"a kernel was never launched on its path: {missing}")

@@ -12,11 +12,12 @@ f32 and all instructions of kernels 2-4, a static count over every stage
 kind's code).
 
 Then, for the families of ``chip_smoke.py`` (``--families``: the
-single-track family, the cascade, the cascade with obstacles and the
-kinematic family, on each build's instantiation for the family; a build
-from before that instantiation existed sits the family out) at its shapes
+single-track family, the cascade, the cascade with obstacles, the
+kinematic family and the kc cascade, on each build's instantiation for the
+family; a build from before that instantiation existed sits the family out) at its shapes
 and budgets, on the same warm-started inputs
-(``chip_smoke.warm_inputs``, computed by no kernel), it times one launch of
+(``chip_smoke.warm_inputs``, computed by no kernel, each family's in a
+process of its own beside the builds: ``chip_smoke.start_warm``), it times one launch of
 each build's kernels with CUDA events: 3 (the whole solve, the main path's
 budget), 2 (the backward pass at the solver's rho0), 4 (the stage
 derivatives), 1 and 5 (the line search at rho0, under the plain backward
@@ -107,14 +108,15 @@ def build_all(baselines, variants):
 
 def load(path, kernels):
     """A build's library with its kernels' entries (and launch-shape entries,
-    and the kinematic family's entries, where it has them) declared."""
+    and the kinematic family's and the kc cascade's entries, where it has
+    them) declared."""
     from vehicle_control_tpu_torch.solvers import cuda_lib
 
     lib = ctypes.CDLL(path)
     entries = [KERNELS[k][0] for k in kernels]
     infos = [KERNELS[k][2] for k in kernels if KERNELS[k][2]]
-    kin = [cuda_lib.kin_entry(n) for n in entries + infos]
-    return cuda_lib.declare(lib, entries + [n for n in infos + kin if hasattr(lib, n)])
+    other = [cuda_lib.suffixed(n, s) for n in entries + infos for s in ("_kin", "_kc")]
+    return cuda_lib.declare(lib, entries + [n for n in infos + other if hasattr(lib, n)])
 
 
 # the SASS opcodes counted as f32 operations (the FP32 pipe and the special
@@ -137,7 +139,8 @@ def sass_counts(lib_path):
         name = block.split("\n", 1)[0].strip()
         for key in SASS_KERNELS:
             if key in name:
-                key += "_kin" if "KinParams" in name else ""  # the kinematic instantiation
+                # the kinematic family's and the kc cascade's instantiations
+                key += "_kin" if "KinParams" in name else "_kc" if "KcParams" in name else ""
                 ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
                                  block)
                 f32 = sum(1 for o in ops if o.split(".")[0] in F32_OPS)
@@ -211,7 +214,7 @@ def run_family(label, env, libs, reps):
 
     problem, budget, cfg, _, shape = chip_smoke.family_problem(label, env)
     fam, H, dev = problem.family, problem.family.H, env["dev"]
-    w = chip_smoke.warm_inputs(label, problem, cfg, env)
+    w = chip_smoke.warm_of(label, env)
     B, NZ, NU, NC = chip_smoke.B, fam.NZ, fam.NU, fam.NC
     NW, A = NZ + NU, len(cfg.alphas())
     params, scfg = cuda_lib.family_params(fam), cuda_lib.solve_config(cfg)
@@ -269,6 +272,7 @@ def run_family(label, env, libs, reps):
                 fn(cond="well")
     torch.cuda.synchronize()
     runs = {(n, k): [] for n in names for k in calls[n]}
+    chip_smoke.warm_barrier(env)  # no other process on the card while timed
     with chip_smoke.sampled_clocks() as clocks:
         for r in range(reps):
             for k in KERNELS:
@@ -381,6 +385,8 @@ def main() -> int:
     print(smi, flush=True)
     variants = [v for v in args.variants.split(",") if v]
     baselines = dict(b.split("=", 1) if "=" in b else ("baseline", b) for b in args.baseline)
+    labels = [label for label in args.families.split(",") if label]
+    warm = chip_smoke.start_warm(labels)  # the families' inputs, beside the builds
     built = build_all(baselines, variants)
     libs, builds = {}, {}
     for name, (path, kernels, seconds) in built.items():
@@ -402,8 +408,8 @@ def main() -> int:
         builds[name]["sass"] = sass_counts(path)
         chip_smoke.phase(f"sass:{name}", **builds[name]["sass"])
     env = chip_smoke.make_env(dev)
-    families = {label: run_family(label, env, libs, args.reps)
-                for label in args.families.split(",") if label}
+    env["warm"] = warm
+    families = {label: run_family(label, env, libs, args.reps) for label in labels}
     line = json.dumps(dict(card=smi, reps=args.reps, builds=builds, families=families))
     print(line)
     if args.out:

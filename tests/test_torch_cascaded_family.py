@@ -269,12 +269,21 @@ def test_problem_setup_matches_jax():
 
 
 def test_unported_families_raise():
-    """The kinematic tail is not ported yet; the "pm" and "none" families
-    build with the obstacle barrier (tests/test_torch_obstacles.py holds it
-    against JAX's); a cascade with M = 0 is the single-track family."""
+    """The kinematic tail with obstacles (its own barrier) is not ported yet,
+    without them it builds (tests/test_torch_cascaded_kinematic.py holds it
+    against JAX's); the "pm" and "none" families build with the obstacle
+    barrier (tests/test_torch_obstacles.py holds it against JAX's); a
+    cascade with M = 0 is the single-track family."""
     car, tt = load_config(config_path(CAR)), tracks()[1]
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tproblems.build_cascaded_problem(car, tt, cascaded_cfg(N, M), "kc", device="cpu")
+    kc_cfg = dict(load_config(config_path("controllers/cascaded_kinematic.yaml")), horizon=N,
+                  horizon_kc=M)
+    with pytest.raises(NotImplementedError, match="kc tail with obstacles"):
+        tproblems.build_cascaded_problem(car, tt, dict(kc_cfg, obstacles=True), "kc",
+                                         device="cpu")
+    prob = tproblems.build_cascaded_problem(car, tt, kc_cfg, "kc", device="cpu")
+    assert (prob.family.tail, prob.horizon, prob.family.obstacles) == ("kc", H, ())
+    with pytest.raises(ValueError, match="tail"):
+        build_cascaded_family(car, cascaded_cfg(N, M), "point_mass")
     for tail in ("pm", "none"):
         prob = tproblems.build_cascaded_problem(car, tt, dict(cascaded_cfg(N, M), obstacles=True),
                                                 tail, device="cpu")

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import chip_smoke
+from vehicle_control_tpu_torch.solvers import cuda_lib
 
 INF = math.inf
 
@@ -388,8 +389,8 @@ def test_kinematic_family_setup():
                                                          kernel2=1e-2, solve=1e-1)
     assert chip_smoke.FAMILY_SHARES["cascaded_obstacles"] == dict(
         rtol=chip_smoke.WITNESS_SHARE, kernel2=1e-2, kernel4=1e-2, solve=5e-2)
-    assert chip_smoke.FAMILY_COPIES == {"cascaded_obstacles": ("solve",),
-                                        "kinematic": ("solve", "kernel2")}
+    assert {k: chip_smoke.FAMILY_COPIES[k] for k in ("cascaded_obstacles", "kinematic")} == {
+        "cascaded_obstacles": ("solve",), "kinematic": ("solve", "kernel2")}
     car, transition, s_index, ns = chip_smoke.family_model("kinematic", env)
     assert car is env["kin_car"] and transition is env["kin_transition"] and (s_index, ns) == (2, 6)
     assert chip_smoke.family_model("cascaded", env)[2:] == (4, 8)
@@ -401,6 +402,36 @@ def test_kinematic_family_setup():
     state[0, 0], state[0, 2] = 5.0, 10.0
     nxt = transition(state, torch.zeros(1, 2), torch.zeros(1), chip_smoke.DT)
     assert nxt[0, 2].item() == pytest.approx(10.25)  # s + v dt on the straight
+
+
+def test_cascaded_kinematic_family_setup():
+    """The kc cascade: bench.py's cascaded_kinematic budget (3 x 8 + 6
+    polish, 6 steps, mu0 = 300), cascaded_kinematic.yaml as shipped (N=20 +
+    K=20, obstacles off), the dynamic car's plant, the kernels' _kc
+    instantiation; its lap among the simulator's, held at its split."""
+    env = chip_smoke.make_env(torch.device("cpu"))
+    ctrl_yaml, tail, overrides, budget = chip_smoke.FAMILIES["cascaded_kinematic"]
+    assert (ctrl_yaml, tail, overrides) == ("cascaded_kinematic.yaml", "kc",
+                                            dict(horizon=20, horizon_kc=20))
+    assert budget == dict(n_outer=3, n_inner=8, n_polish=6, n_alpha=6, mu0=300.0)
+    assert "cascaded_kinematic" not in chip_smoke.SIDE_ROUTES
+    assert chip_smoke.CPU_F64_LANES["cascaded_kinematic"] == 1024
+    assert "cascaded_kinematic" in chip_smoke.LAPS
+    # its knife-edge shares: the kinematic bicycle's steering stop and box rows
+    # on its tail (PERF.md: 15 lanes of kernel 2 at rho = 1, 40 at rho0, 16 of
+    # check (i))
+    assert chip_smoke.FAMILY_SHARES["cascaded_kinematic"] == dict(
+        rtol=chip_smoke.WITNESS_SHARE, kernel2=2e-2, solve=1e-2)
+    assert chip_smoke.FAMILY_COPIES["cascaded_kinematic"] == ("solve", "kernel2")
+    assert (chip_smoke.KC_SPLIT_M, chip_smoke.KC_SPLIT_REF_S) == (200.0, 13.80)
+    car, transition, s_index, ns = chip_smoke.family_model("cascaded_kinematic", env)
+    assert car is env["car"] and transition is env["transition"] and (s_index, ns) == (4, 8)
+    prob = chip_smoke.build_problem("cascaded_kinematic", car, env["track"], torch.float32,
+                                    "cpu", env["root"])
+    fam = prob.family
+    assert (fam.tail, fam.N, fam.H, fam.NZ, fam.obstacles) == ("kc", 20, 40, 10, ())
+    assert cuda_lib.entry(fam, "vct_solve_fm_info") == "vct_solve_fm_kc_info"
+    assert len(cuda_lib.family_params(fam)) == len(cuda_lib.KC_PARAM_FIELDS)
 
 
 def _kernels_line(launches):

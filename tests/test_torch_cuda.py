@@ -83,6 +83,9 @@ def _problem(device="cpu", dtype=torch.float64, tail="none", obstacles=False):
     if tail == "pm":  # the cascade at N=4 + M=4 stages
         cfg = dict(_config("controllers/cascaded.yaml"), obstacles=obstacles, horizon=H // 2,
                    horizon_pm=H // 2)
+    elif tail == "kc":  # the kc cascade at N=4 + K=4 stages
+        cfg = dict(_config("controllers/cascaded_kinematic.yaml"), obstacles=False,
+                   horizon=H // 2, horizon_kc=H // 2)
     else:
         cfg = dict(_config("controllers/singletrack.yaml"), obstacles=False, horizon=H)
     return track, problems.build_cascaded_problem(
@@ -145,6 +148,11 @@ def obs_inputs(cuda):
 @pytest.fixture(scope="module")
 def kin_inputs(cuda):
     return _inputs(cuda, "kinematic", obstacles=True)
+
+
+@pytest.fixture(scope="module")
+def kc_inputs(cuda):
+    return _inputs(cuda, "kc")
 
 
 @pytest.mark.cuda
@@ -477,3 +485,23 @@ def test_kinematic_closed_loop_routes(cuda):
         assert [k.launches for k in step.kernels] == launches, flags
         assert torch.isfinite(nxt).all() and torch.isfinite(action).all()
         assert carry.X_pred.shape == (256, H, 8) and info.converged.shape == (256,)
+
+
+@pytest.mark.cuda
+def test_kc_kernels_match_plain(kc_inputs):
+    """Kernels 1, 2, 4 and 5 of the kc cascade (its ``_kc`` instantiations)
+    against their plain versions; kernel 5 gives kernel 1's bits; the seam's
+    Jacobian reads the Fx stash."""
+    _cascade_kernels_match_plain(kc_inputs)
+    fam, X, U, lam, mu, _, curv, ds, z0, kff, Kfb = kc_inputs
+    args = (X, U, kff, Kfb, lam, mu, curv, ds, z0)
+    got, ref = LinesearchKernelAoS(fam, ALPHAS)(*args), LinesearchKernelFM(fam, ALPHAS)(*args)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    jm = DerivsKernelFM(fam)(X, U, lam, mu, curv, ds)[2]
+    assert (jm[:, fam.N - 1, 6, 8] != 0).all() and (jm[:, fam.N - 1, 7, 9] == 1).all()
+
+
+@pytest.mark.cuda
+def test_kc_solve_kernel_matches_plain(kc_inputs):
+    """Kernel 3 of the kc cascade, as on the cascade."""
+    _cascade_solve_kernel_matches_plain(kc_inputs)

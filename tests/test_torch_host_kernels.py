@@ -17,10 +17,11 @@ warm starts, rolled out under perturbed controls, with random multipliers,
 made in float64 and handed to both versions in float32, at B=8 on the
 single-track family (H=6), the cascade (N=4 + M=5), the cascade with
 ippodromo's obstacles (the barrier's table is a run-time parameter, so the
-same builds run it) and the kinematic family with them (N=6, H=7: the
+same builds run it), the kinematic family with them (N=6, H=7: the
 kernels' instantiation for KinParams, the ``_kin`` entries), whose drops
 sit 2-15 m before a disc, within 1.5 m of its ey, so the horizons run past
-and into the discs.  Lanes 0 and 1 start beyond the state guard and from a
+and into the discs, and the kc cascade (N=4 + K=5: the instantiation for
+KcParams, the ``_kc`` entries).  Lanes 0 and 1 start beyond the state guard and from a
 NaN.  Tolerances (those of
 ``chip_smoke.py``: float32 rounding in another order):
 - kernel 2 at rho = 1: gains and dV within BW_TOL of each lane's largest
@@ -44,7 +45,12 @@ NaN.  Tolerances (those of
 - the counting build: kernels 4 and 2's outputs bit for bit, and at most
   half the operations that chip_smoke.count_ops counts on the plain
   versions' jets (the kinematic family's plain derivatives are closed forms
-  too: there at most the plain version's).
+  too: there at most the plain version's);
+- the kc cascade's seam reads the previous controls (a_final), so its
+  Jacobian has live stash columns, which the team's slot must carry: the
+  plain gains with those columns dropped part from the intact ones by more
+  than three times BW_TOL on most lanes, so kernel 2's gate at BW_TOL
+  (test_backward_team_matches_plain) fails a build that drops them.
 """
 
 import ctypes
@@ -71,7 +77,7 @@ from vehicle_control_tpu_torch.utils.config import load_config, project_root
 
 B = 8
 HORIZONS = {"none": dict(horizon=6), "pm": dict(horizon=4, horizon_pm=5),
-            "kinematic": dict(horizon=6)}
+            "kinematic": dict(horizon=6), "kc": dict(horizon=4, horizon_kc=5)}
 BW_TOL, SOLVE_TOL, DV_TOL, LS_RTOL = 1e-3, 1e-4, 1e-4, 1e-4
 BUILDS = {"team4": (), "team8": ("-DVCT_TEAM=8",)}
 COUNT_FLAGS = ("-DVCT_COUNT_OPS",)  # the build that counts its f32 operations
@@ -106,7 +112,7 @@ def host_libs():
     libs = {}
     for name, path in _build_all(cxx).items():
         lib = ctypes.CDLL(path)
-        for suffix in ("", "_kin"):  # the cascaded family's entries, the kinematic family's
+        for suffix in ("", "_kin", "_kc"):  # the cascaded family's, the kinematic, the kc
             getattr(lib, "vct_host_backward" + suffix).argtypes = [P] + [P] * 11 + [I, I]
             getattr(lib, "vct_host_solve" + suffix).argtypes = [P, P] + [P] * 11 + [I, I]
             getattr(lib, "vct_host_derivs" + suffix).argtypes = [P] * 10 + [I, I]
@@ -116,6 +122,7 @@ def host_libs():
         assert lib.vct_host_solve_config_size() == ctypes.sizeof(cuda_lib.SolveConfig)
         assert lib.vct_host_param_count() == len(cuda_lib.PARAM_FIELDS)  # the table's too
         assert lib.vct_host_kin_param_count() == len(cuda_lib.KIN_PARAM_FIELDS)
+        assert lib.vct_host_kc_param_count() == len(cuda_lib.KC_PARAM_FIELDS)
         assert lib.vct_host_team() >= 4
         if name == "count":
             lib.vct_host_ops.restype = ctypes.c_double
@@ -175,7 +182,8 @@ def _config(rel):
     return load_config(f"{project_root()}/configs/{rel}")
 
 
-@pytest.fixture(scope="module", params=["none", "pm", "pm_obstacles", "kinematic_obstacles"])
+@pytest.fixture(scope="module",
+                params=["none", "pm", "pm_obstacles", "kinematic_obstacles", "kc"])
 def inputs(request):
     """(family, X, U, lam, mu, rho, curv, ds, z0) in float32 on the CPU."""
     tail, _, obstacles = request.param.partition("_")
@@ -186,7 +194,8 @@ def inputs(request):
                                                 torch.float64, "cpu")
         ns, i_s, u_noise = 6, 2, (0.5, 0.05)  # (a, w) in physical units
     else:
-        name = "singletrack.yaml" if tail == "none" else "cascaded.yaml"
+        name = {"none": "singletrack.yaml", "pm": "cascaded.yaml",
+                "kc": "cascaded_kinematic.yaml"}[tail]
         cfg = dict(_config(f"controllers/{name}"), obstacles=bool(obstacles), **HORIZONS[tail])
         prob = problems.build_cascaded_problem(_config("models/dynamic_car.yaml"), track, cfg,
                                                tail, torch.float64, "cpu")
@@ -362,12 +371,21 @@ def _edges(inputs):
     cp = dict(zip(cuda_lib.PARAM_FIELDS, cuda_lib.family_params(fam).tolist()))
     X[2, :, 0] = cp["max_speed"]
     X[3, :N, 5] = cp["ey_max"]
-    X[3, N:, 2] = cp["ey_max_pm"]
+    if not cuda_lib.is_kc(fam):
+        X[3, N:, 2] = cp["ey_max_pm"]
     X[4, :N, 0], X[4, :N, 3], X[4, :N, 5], X[4, :N, 6] = 1.0, 1.0, 8.0, 1.3
     X[5, :N, 3] = cp["delta_max"]
     lam[5, :N, 1] = 0.0  # c = delta - delta_max = 0
     U[5, :N, 1] = f32(cp["w_max"]) - 0.5
     lam[5, :N, 4] = -(mu[5] * (U[5, :N, 1] - f32(cp["w_max"])))  # lam = -mu c
+    if cuda_lib.is_kc(fam):  # the tail: v, delta, ey and epsi on its clamps' ties, the stop
+        kp = dict(zip(cuda_lib.KC_PARAM_FIELDS, cuda_lib.family_params(fam).tolist()))
+        X[3, N:, 3] = kp["ey_max_kc"]
+        X[4, N:, 0], X[4, N:, 1], X[4, N:, 3], X[4, N:, 4] = 0.5, 1.0, 8.0, 1.2
+        X[5, N:, 1], U[5, N:, 1] = kp["delta_max_kc"], 0.0  # the steering stop's tie
+        lam[5, N:, 1] = 0.0  # c = delta - delta_max = 0
+        lam[5, N:, 5] = -(mu[5] * (U[5, N:, 1] - f32(kp["w_max"])))  # lam = -mu c
+        return fam, X, U, lam, mu, curv, ds
     X[5, N:, 0] = f32(cp["V_min"]) + 1.0
     lam[5, N:, 0] = -(mu[5] * (f32(cp["V_min"]) - X[5, N:, 0]))
     return fam, X, U, lam, mu, curv, ds
@@ -462,3 +480,33 @@ def test_counting_build_same_bits_fewer_ops(host_libs, inputs):
     plain_bw = chip_smoke.count_ops(lambda: backward_plain(fam, *bw_args)) / B
     assert 0 < ops_dv < (1.0 if cuda_lib.is_kinematic(fam) else 0.5) * plain_dv
     assert ops_dv < ops_bw < plain_bw
+
+
+def test_kc_seam_stash_columns_gate(kernel_lib, inputs):
+    """The kc seam's Jacobian reads the stash (a_final from the previous Fx,
+    the next w stash from the previous w), and the team's slot carries those
+    columns: kernel 2 keeps the plain gains within BW_TOL
+    (test_backward_team_matches_plain), while the plain gains with the
+    seam's stash columns zeroed part from the intact ones by more than three
+    times BW_TOL on most lanes, so that gate fails a slot that drops them."""
+    fam, X, U, lam, mu, rho, curv, ds = inputs[:8]
+    if not cuda_lib.is_kc(fam):
+        pytest.skip("the kc cascade's seam")
+    from vehicle_control_tpu_torch.solvers.backward_kernel_fm import stage_derivatives
+    from vehicle_control_tpu_torch.solvers.riccati import riccati_from_derivs
+
+    g, Hw, Jm = stage_derivatives(fam, X, U, lam, mu, curv, ds)
+    seam = fam.N - 1
+    assert (Jm[:, seam, 6, 8] != 0).all() and (Jm[:, seam, 7, 9] == 1).all()
+    assert (Jm[:, :seam, :, 8:10] == 0).all() and (Jm[:, fam.N:, :, 8:10] == 0).all()
+    dropped = Jm.clone()
+    dropped[:, seam, :, 8:10] = 0.0
+    ref = riccati_from_derivs(fam.NZ, g, Hw, Jm, rho)
+    cut = riccati_from_derivs(fam.NZ, g, Hw, dropped, rho)
+    got = host_backward(kernel_lib, fam, X, U, lam, mu, rho, curv, ds)
+    ok = _finite_lanes(ref[:4]) & _finite_lanes(cut[:4])
+    assert ok.float().mean() > 0.5
+    err_cut = torch.stack([_lane_err(a[ok], b[ok]) for a, b in zip(cut[:2], ref[:2])]).amax(0)
+    err_got = torch.stack([_lane_err(a[ok], b[ok]) for a, b in zip(got[:2], ref[:2])]).amax(0)
+    assert (err_cut > 3 * BW_TOL).float().mean() > 0.5, err_cut
+    assert err_got.max().item() < BW_TOL

@@ -254,14 +254,21 @@ def test_summarize_matches_jax(capsys):
 
 
 def test_unported_options_raise():
-    """The kinematic tail and the render adapters raise; the kinematic
-    family builds (KinematicRacingSimulator and KinematicMPC on the CPU:
-    tests/test_torch_kinematic.py runs them); obstacles reach the
-    controller's problem (tests/test_torch_obstacles.py runs them)."""
+    """The kinematic tail with obstacles and the render adapters raise; the
+    kinematic tail without obstacles builds (tests/test_torch_cascaded_
+    kinematic.py runs it), the kinematic family too (KinematicRacingSimulator
+    and KinematicMPC on the CPU: tests/test_torch_kinematic.py runs them);
+    obstacles reach the controller's problem (tests/test_torch_obstacles.py
+    runs them)."""
     car, track_cfg = _car_track(load_config)
     with pytest.raises(NotImplementedError):
-        RacingSimulator(ConfigDict(_simconfig(["cascaded_kinematic"], {"cascaded_kinematic": {}})),
-                        car, track_cfg, device="cpu")
+        RacingSimulator(ConfigDict(_simconfig(["cascaded_kinematic"], {"cascaded_kinematic": {}},
+                                              obstacles=True)), car, track_cfg, device="cpu")
+    kc = RacingSimulator(ConfigDict(_simconfig(["cascaded_kinematic"],
+                                               {"cascaded_kinematic": {}})), car, track_cfg,
+                         device="cpu")
+    prob = kc.entries["cascaded_kinematic"].problem
+    assert (prob.family.tail, prob.horizon, prob.nz) == ("kc", 40, 10)
     kin_car = load_config(config_path("models/kinematic_car.yaml"))
     kin = KinematicRacingSimulator(ConfigDict(_simconfig(["kinematic"], {"kinematic": {}})),
                                    kin_car, track_cfg, device="cpu")

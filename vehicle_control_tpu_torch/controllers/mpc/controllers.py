@@ -6,9 +6,10 @@ the warm start (previous predictions and AL multipliers), shifted one stage
 forward after every solve; a lane whose solve diverged is reset to the
 problem's cold-start guess.  The solver config's flags pick the kernels
 (``_kernels``).  ``make_parity_step`` is the reference-parity step (the
-unshifted warm start).  ``CascadedMPC``, ``SingleTrackMPC`` and
-``KinematicMPC`` give the reference's ``controller.command(state)`` API over
-a batch of one, on the whole-solve route (``controller_solver_config``).
+unshifted warm start).  ``CascadedMPC``, ``SingleTrackMPC``,
+``CascadedKinematicMPC`` and ``KinematicMPC`` give the reference's
+``controller.command(state)`` API over a batch of one, on the whole-solve
+route (``controller_solver_config``).
 """
 
 from __future__ import annotations
@@ -261,6 +262,30 @@ class CascadedMPC(_MPCBase):
 class SingleTrackMPC(CascadedMPC):
     """Single-track-only MPC: the ``singletrack.yaml`` (M = 0) configuration
     of CascadedMPC."""
+
+
+class CascadedKinematicMPC(_MPCBase):
+    """Single-track + kinematic-tail cascaded MPC (``cascaded_kinematic.yaml``,
+    ``tail="kc"``).  On the card in f32 unless the caller asks for another
+    device or dtype."""
+
+    def __init__(self, car_config, track, cfg, dtype=None, device=DEFAULT_DEVICE):
+        dtype = dtype or default_dtype(device)
+        problem = problems.build_cascaded_problem(car_config, track, cfg, "kc", dtype, device)
+        super().__init__(problem, cfg, track)
+        self.N = int(cfg["horizon"])
+
+    def get_state_prediction(self):
+        """Global-frame (x, y, psi) of the predicted trajectory, (H, 3): the
+        single-track rows' (s, ey, epsi) are fields 4-6, the kinematic
+        rows' 2-4."""
+        X, N = self._carry.X_pred[0], self.N
+        rows = [(X[:N, 4], X[:N, 5], X[:N, 6])]
+        if self.problem.horizon > N:
+            rows.append((X[N:, 2], X[N:, 3], X[N:, 4]))
+        xs, ys, psis = (torch.cat(c) for c in zip(*(
+            track_mod.rel2glob(self._track_data, *r) for r in rows)))
+        return torch.stack([xs, ys, psis], dim=-1)
 
 
 class KinematicMPC(_MPCBase):

@@ -6,8 +6,11 @@ single-track family (``configs/controllers/singletrack.yaml``), and
 ``tail="pm"``, the paper's cascade of N single-track stages and M
 point-mass stages (``configs/controllers/cascaded.yaml``), both with or
 without the obstacle barrier (``cfg["obstacles"]``: a cost term over the
-track's discs, ``_obstacle_barrier``); the kinematic tail raises
-``NotImplementedError``.  ``build_kinematic_problem`` is the pure kinematic
+track's discs, ``_obstacle_barrier``), and ``tail="kc"``, N single-track
+stages and a kinematic-bicycle tail of ``horizon_kc`` stages
+(``configs/controllers/cascaded_kinematic.yaml``), without obstacles (the
+kc tail's own barrier is not ported: with obstacles it raises
+``NotImplementedError``).  ``build_kinematic_problem`` is the pure kinematic
 bicycle (``configs/controllers/kinematic.yaml``, H = N + 1 stages).
 
 The callbacks are the family's field-wise closures (solvers.fm_family)
@@ -15,8 +18,8 @@ applied to batch-first tensors: the solver state is z = [x(8), u_prev(2)]
 so the slew costs are Markov stage costs, forces are solved in kN
 (FORCE_SCALE), the dynamics are the regularized spatial RK4 step with the
 steering stop (``_sat_col``) and the softplus-floored 1/s_dot (then the
-seam and the point-mass Euler step for ``tail="pm"``), and the stage-0
-state-only constraint rows are masked.
+seam and the point-mass or kinematic Euler step for ``tail="pm"`` or
+``"kc"``), and the stage-0 state-only constraint rows are masked.
 """
 
 from __future__ import annotations
@@ -114,38 +117,45 @@ def build_cascaded_problem(
     car_config, track: "track_mod.Track", cfg, tail: str = "none",
     dtype=torch.float64, device=DEFAULT_DEVICE,
 ) -> MPCProblem:
-    """The cascaded MPC problem (``tail`` "none" or "pm") on ``device`` in
-    ``dtype``.
+    """The cascaded MPC problem (``tail`` "none", "pm" or "kc") on
+    ``device`` in ``dtype``.
 
     The card is the default; without CUDA that raises, and the caller asks
     for ``device="cpu"`` (where the kernels' plain versions run)."""
     device = require_device(device)
-    family = build_cascaded_family(car_config, cfg, tail, track.data)  # raises past "none"/"pm"
+    family = build_cascaded_family(car_config, cfg, tail, track.data)  # kc with obstacles raises
     track_data = track.data.to(device=device, dtype=dtype)
     p = family.params
     H, N = family.H, family.N
     M = H - N
-    pm = family.tail == "pm"
+    pm, kc = family.tail == "pm", family.tail == "kc"
     ds_pm = float(cfg["ds_pm"]) if pm else 0.0
+    mpc_dt_kc = float(cfg["mpc_dt_kc"]) if kc else 0.0
     nz, nu, nc = family.NZ, family.NU, family.NC
     mpc_dt = float(cfg["mpc_dt"])
     kw = dict(dtype=dtype, device=device)
 
     u_scale = torch.ones(H, nu, **kw)
     u_scale[:, 0] = FORCE_SCALE  # Fx in kN at every stage
-    u_scale[N:, 1] = FORCE_SCALE  # Fy in kN on the point-mass stages
+    if pm:
+        u_scale[N:, 1] = FORCE_SCALE  # Fy in kN on the point-mass stages
 
     def init_horizon(state0, X_prev, U_prev):
         """Warm-started ds/curvature horizon from the previous prediction:
         single-track steps of mpc_dt at the predicted speed, then point-mass
-        steps of ds_pm."""
+        steps of ds_pm, or kinematic steps of mpc_dt_kc at the tail's
+        predicted speed."""
         ds_st = mpc_dt * X_prev[:, :N, 0]
         s_traj = torch.cumsum(ds_st, dim=1) - ds_st[:, :1] + state0[:, 4:5]
         k_st = track_mod.curvature(track_data, s_traj)
         z0 = torch.cat([state0, state0.new_zeros(state0.shape[0], 2)], dim=1)
-        if not pm:
+        if not (pm or kc):
             return HorizonParams(curvature=k_st, ds=ds_st), z0
-        ds_tail = torch.full((state0.shape[0], M), ds_pm, dtype=ds_st.dtype, device=ds_st.device)
+        if pm:
+            ds_tail = torch.full((state0.shape[0], M), ds_pm, dtype=ds_st.dtype,
+                                 device=ds_st.device)
+        else:
+            ds_tail = mpc_dt_kc * X_prev[:, N:H, 0]
         s_tail = torch.cumsum(ds_tail, dim=1) - ds_st[:, -1:] + s_traj[:, -1:]
         k_tail = track_mod.curvature(track_data, s_tail)
         params = HorizonParams(curvature=torch.cat([k_st, k_tail], 1),
@@ -159,8 +169,9 @@ def build_cascaded_problem(
 
     def warm_start(state0):
         """Speed-consistent cold-start guess for scenarios dropped mid-track:
-        Ux held, Fx = drag, and on the point-mass stages the curvature
-        feed-forward Fy = m Ux^2 k."""
+        Ux held, Fx = drag, on the point-mass stages the curvature
+        feed-forward Fy = m Ux^2 k, on the kinematic tail a = 0 (holds the
+        speed)."""
         Ux0 = torch.clamp_min(state0[:, 0], 1.0)
         X0 = torch.ones(state0.shape[0], H, nz, **kw)
         X0[:, :, 0] = Ux0[:, None]
@@ -172,6 +183,8 @@ def build_cascaded_problem(
             s_tail = s_st_last[:, None] + ds_pm * torch.arange(1, M + 1, **kw)
             k_tail = track_mod.curvature(track_data, s_tail)
             U0[:, N:, 1] = p.m * Ux0[:, None] ** 2 * k_tail / FORCE_SCALE
+        elif kc:
+            U0[:, N:, 0] = 0.0
         return X0, U0
 
     u_lo, u_hi = _u_boxes(family, **kw)

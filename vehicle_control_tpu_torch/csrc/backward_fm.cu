@@ -1,7 +1,8 @@
 // Kernel 2: fused backward pass (stage derivatives + Riccati), by a team of
 // TEAM threads per scenario: one instantiation for the cascaded family
-// (tail="none" or tail="pm": vct_backward_fm) and one for the kinematic
-// family (vct_backward_fm_kin).
+// (tail="none" or tail="pm": vct_backward_fm), one for the kinematic
+// family (vct_backward_fm_kin) and one for the kc cascade
+// (vct_backward_fm_kc).
 //
 // Replaces the Pallas TPU kernel build_backward_kernel_fm
 // (vehicle_control_tpu/solvers/backward_kernel_fm.py).  For each scenario it
@@ -84,6 +85,14 @@ extern "C" int vct_backward_fm_kin(const float* params, const float* x, const fl
                                     B, H, stream);
 }
 
+extern "C" int vct_backward_fm_kc(const float* params, const float* x, const float* u,
+                                  const float* lam, const float* mu, const float* rho,
+                                  const float* curv, const float* ds, float* kff, float* kfb,
+                                  float* dv, float* fail, int B, int H, void* stream) {
+  return backward_launch<KcParams>(params, x, u, lam, mu, rho, curv, ds, kff, kfb, dv, fail, B,
+                                   H, stream);
+}
+
 // the launch shape at B scenarios (team.cuh: team_launch_info)
 extern "C" int vct_backward_fm_info(int B, int* out) {
   return team_launch_info<STParams>(backward_fm_kernel<STParams>, B, out);
@@ -91,6 +100,10 @@ extern "C" int vct_backward_fm_info(int B, int* out) {
 
 extern "C" int vct_backward_fm_kin_info(int B, int* out) {
   return team_launch_info<KinParams>(backward_fm_kernel<KinParams>, B, out);
+}
+
+extern "C" int vct_backward_fm_kc_info(int B, int* out) {
+  return team_launch_info<KcParams>(backward_fm_kernel<KcParams>, B, out);
 }
 
 #endif

@@ -1,6 +1,6 @@
 // Kernel 4: per-stage derivatives, one instantiation for the cascaded
-// family (tail="none" or tail="pm": vct_derivs_fm) and one for the
-// kinematic family (vct_derivs_fm_kin).
+// family (tail="none" or tail="pm": vct_derivs_fm), one for the kinematic
+// family (vct_derivs_fm_kin) and one for the kc cascade (vct_derivs_fm_kc).
 //
 // Replaces the Pallas TPU kernel build_derivs_kernel_fm
 // (vehicle_control_tpu/solvers/derivs_kernel_fm.py).  For every (stage,
@@ -105,6 +105,13 @@ extern "C" int vct_derivs_fm_kin(const float* params, const float* x, const floa
   return derivs_launch<KinParams>(params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream);
 }
 
+extern "C" int vct_derivs_fm_kc(const float* params, const float* x, const float* u,
+                                const float* lam, const float* mu, const float* curv,
+                                const float* ds, float* g, float* hw, float* jm, int B, int H,
+                                void* stream) {
+  return derivs_launch<KcParams>(params, x, u, lam, mu, curv, ds, g, hw, jm, B, H, stream);
+}
+
 // the launch shape at B scenarios and H stages (family.cuh:
 // kernel_launch_info; the lead number is the threads a (stage, scenario))
 extern "C" int vct_derivs_fm_info(int B, int H, int* out) {
@@ -113,6 +120,10 @@ extern "C" int vct_derivs_fm_info(int B, int H, int* out) {
 
 extern "C" int vct_derivs_fm_kin_info(int B, int H, int* out) {
   return kernel_launch_info(derivs_fm_kernel<KinParams>, 1, (long long)B * H, 128, 0, out);
+}
+
+extern "C" int vct_derivs_fm_kc_info(int B, int H, int* out) {
+  return kernel_launch_info(derivs_fm_kernel<KcParams>, 1, (long long)B * H, 128, 0, out);
 }
 
 #endif

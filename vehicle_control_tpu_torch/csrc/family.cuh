@@ -1,8 +1,9 @@
 // The per-lane pieces that every kernel runs, over a family: the stages in
 // order, the closed-loop stage of a line-search candidate (kernels 1, 3 and
 // 5) and its record.  The family is a compile-time parameter, the type P of
-// its parameter block: STParams (the cascaded family, singletrack.cuh) or
-// KinParams (the kinematic family, kinematic.cuh).  P gives the widths
+// its parameter block: STParams (the cascaded family, tail "none" or "pm",
+// singletrack.cuh), KinParams (the kinematic family, kinematic.cuh) or
+// KcParams (the kc cascade, kc_cascade.cuh).  P gives the widths
 // (P::NZ, P::NU, P::NC, P::NW, P::NSYM, P::NX: the model's fields), and the
 // family's functions are overloads on P: segments, stage_kind, with_kind,
 // stage_box, seam_stage, stage_cost, stage_constraints, al_cost, dyn and
@@ -14,6 +15,7 @@
 // index fastest, so neighbouring threads read neighbouring addresses.
 #pragma once
 
+#include "kc_cascade.cuh"
 #include "kinematic.cuh"
 #include "singletrack.cuh"
 
@@ -36,7 +38,8 @@ VCT_HD void for_each_stage(int H, const P& p, F&& f) {
 
 // one stage of one lane as the closed-loop rollouts read it: the reference
 // state and control, the gains, the multipliers, the arc parameters (dss:
-// the seam stage's arc step) and the control box
+// the arc step of seam_stage, which the switching cost reads) and the
+// control box
 template <class P>
 struct Stage {
   float xref[P::NZ], uref[P::NU], kff[P::NU], kfb[P::NU][P::NZ], lam[P::NC];

@@ -13,7 +13,8 @@
 //   stage's candidate_stage in order).
 // Same arguments and layouts as the kernels' launchers, without the stream;
 // each entry comes for the cascaded family (STParams) and, with the suffix
-// _kin, for the kinematic family (KinParams), as the kernels' entries do.
+// _kin, for the kinematic family (KinParams) and, with _kc, for the kc
+// cascade (KcParams), as the kernels' entries do.
 //
 //     g++ -std=c++17 -O1 -shared -fPIC -I csrc -o libvct_host.so csrc/host_driver.cpp
 //
@@ -32,10 +33,11 @@ extern "C" int vct_host_team() { return TEAM; }
 
 extern "C" int vct_host_solve_config_size() { return (int)sizeof(SolveConfig); }
 
-// STParams' and KinParams' floats (the obstacle table's included), as
-// vct_param_count and vct_kin_param_count
+// STParams', KinParams' and KcParams' floats (the obstacle table's
+// included), as vct_param_count, vct_kin_param_count and vct_kc_param_count
 extern "C" int vct_host_param_count() { return (int)(sizeof(STParams) / sizeof(float)); }
 extern "C" int vct_host_kin_param_count() { return (int)(sizeof(KinParams) / sizeof(float)); }
+extern "C" int vct_host_kc_param_count() { return (int)(sizeof(KcParams) / sizeof(float)); }
 
 extern "C" void vct_host_set_member_order(int last_first) { host_member_order = last_first; }
 
@@ -161,7 +163,7 @@ static int host_linesearch_aos(const float* params, const float* alphas, int A,
 }
 
 // the C entries of each family: NAME for the cascaded family, NAME_kin for
-// the kinematic family
+// the kinematic family, NAME_kc for the kc cascade
 #define VCT_HOST_ENTRIES(SUFFIX, P)                                                              \
   extern "C" int vct_host_backward##SUFFIX(                                                      \
       const float* params, const float* x, const float* u, const float* lam, const float* mu,    \
@@ -200,6 +202,7 @@ static int host_linesearch_aos(const float* params, const float* alphas, int A,
   }
 VCT_HOST_ENTRIES(, STParams)
 VCT_HOST_ENTRIES(_kin, KinParams)
+VCT_HOST_ENTRIES(_kc, KcParams)
 #undef VCT_HOST_ENTRIES
 
 #if defined(VCT_COUNT_OPS)

@@ -68,8 +68,9 @@ struct LsLayout {
                 "odd strides");
 };
 static_assert(sizeof(StageSlot<STParams>) == 53 * sizeof(float) &&
-                  sizeof(StageSlot<KinParams>) == 47 * sizeof(float),
-              "a slot is 53 floats (cascaded), 47 (kinematic)");
+                  sizeof(StageSlot<KinParams>) == 47 * sizeof(float) &&
+                  sizeof(StageSlot<KcParams>) == 53 * sizeof(float),
+              "a slot is 53 floats (cascaded, kc), 47 (kinematic)");
 
 // rollout warps a block (as many cost warps), shared memory for chunks of
 // C stages, and the chunk for A step sizes

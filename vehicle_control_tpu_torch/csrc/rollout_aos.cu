@@ -72,7 +72,7 @@ struct AosRecords {
 
 // costs (A, B); every other pointer is a device array in the (B, H, F)
 // layout; one entry a family (vct_linesearch_aos: the cascaded family,
-// _kin: the kinematic family)
+// _kin: the kinematic family, _kc: the kc cascade)
 extern "C" int vct_linesearch_aos(const float* params, const float* alphas, int A,
                                   const float* xref, const float* uref, const float* kff,
                                   const float* kfb, const float* lam, const float* mu,
@@ -93,6 +93,16 @@ extern "C" int vct_linesearch_aos_kin(const float* params, const float* alphas, 
       stream);
 }
 
+extern "C" int vct_linesearch_aos_kc(const float* params, const float* alphas, int A,
+                                     const float* xref, const float* uref, const float* kff,
+                                     const float* kfb, const float* lam, const float* mu,
+                                     const float* curv, const float* ds, const float* z0,
+                                     float* costs, int B, int H, void* stream) {
+  return linesearch_launch<KcParams, AosRecords<KcParams>>(
+      params, alphas, A, LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}, costs, B, H,
+      stream);
+}
+
 // the launch shape at B scenarios and A step sizes
 extern "C" int vct_linesearch_aos_info(int B, int A, int* out) {
   return linesearch_launch_info<STParams, AosRecords<STParams>>(B, A, out);
@@ -100,6 +110,10 @@ extern "C" int vct_linesearch_aos_info(int B, int A, int* out) {
 
 extern "C" int vct_linesearch_aos_kin_info(int B, int A, int* out) {
   return linesearch_launch_info<KinParams, AosRecords<KinParams>>(B, A, out);
+}
+
+extern "C" int vct_linesearch_aos_kc_info(int B, int A, int* out) {
+  return linesearch_launch_info<KcParams, AosRecords<KcParams>>(B, A, out);
 }
 
 #endif

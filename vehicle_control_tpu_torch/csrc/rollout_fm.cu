@@ -1,6 +1,7 @@
 // Kernel 1: line-search costs, one instantiation for the cascaded family
-// (tail="none" or tail="pm": vct_linesearch_fm) and one for the kinematic
-// family (vct_linesearch_fm_kin).
+// (tail="none" or tail="pm": vct_linesearch_fm), one for the kinematic
+// family (vct_linesearch_fm_kin) and one for the kc cascade
+// (vct_linesearch_fm_kc).
 //
 // Replaces the Pallas TPU kernel build_linesearch_kernel_fm
 // (vehicle_control_tpu/solvers/rollout_kernel_fm.py).  For each of A step
@@ -36,6 +37,9 @@ extern "C" int vct_param_count() { return (int)(sizeof(STParams) / sizeof(float)
 // KinParams' floats (cuda_lib.KIN_PARAM_FIELDS)
 extern "C" int vct_kin_param_count() { return (int)(sizeof(KinParams) / sizeof(float)); }
 
+// KcParams' floats (cuda_lib.KC_PARAM_FIELDS)
+extern "C" int vct_kc_param_count() { return (int)(sizeof(KcParams) / sizeof(float)); }
+
 extern "C" const char* vct_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -61,6 +65,16 @@ extern "C" int vct_linesearch_fm_kin(const float* params, const float* alphas, i
       stream);
 }
 
+extern "C" int vct_linesearch_fm_kc(const float* params, const float* alphas, int A,
+                                    const float* xref, const float* uref, const float* kff,
+                                    const float* kfb, const float* lam, const float* mu,
+                                    const float* curv, const float* ds, const float* z0,
+                                    float* costs, int B, int H, void* stream) {
+  return linesearch_launch<KcParams, SoaRecords<KcParams>>(
+      params, alphas, A, LsInputs{xref, uref, kff, kfb, lam, mu, curv, ds, z0}, costs, B, H,
+      stream);
+}
+
 // the launch shape at B scenarios and A step sizes
 extern "C" int vct_linesearch_fm_info(int B, int A, int* out) {
   return linesearch_launch_info<STParams, SoaRecords<STParams>>(B, A, out);
@@ -68,6 +82,10 @@ extern "C" int vct_linesearch_fm_info(int B, int A, int* out) {
 
 extern "C" int vct_linesearch_fm_kin_info(int B, int A, int* out) {
   return linesearch_launch_info<KinParams, SoaRecords<KinParams>>(B, A, out);
+}
+
+extern "C" int vct_linesearch_fm_kc_info(int B, int A, int* out) {
+  return linesearch_launch_info<KcParams, SoaRecords<KcParams>>(B, A, out);
 }
 
 #endif

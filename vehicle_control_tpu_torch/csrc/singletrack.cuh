@@ -74,6 +74,14 @@ struct STParams {
   float obs[MAX_OBS][3];
 };
 
+// Whether some stage's dynamics read the previous controls (the Jacobian's
+// stash columns): not the cascaded family's or the kinematic family's; the
+// kc cascade's seam does (kc_cascade.cuh).  team.cuh sizes its slot by it.
+template <class P>
+struct ReadsStash {
+  static constexpr bool value = false;
+};
+
 // -- the horizon's static segments (fm_family.Seg) --------------------------------
 
 enum StageKind { K_ST, K_ST_TERM, K_SEAM, K_SWITCH, K_TAIL, K_TERM };

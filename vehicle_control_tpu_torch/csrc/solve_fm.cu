@@ -1,7 +1,8 @@
 // Kernel 3: the whole AL-iLQR solve in one launch, by a team of TEAM
 // threads per scenario: one instantiation for the cascaded family
-// (tail="none" or tail="pm", STParams: vct_solve_fm) and one for the
-// kinematic family (KinParams: vct_solve_fm_kin).
+// (tail="none" or tail="pm", STParams: vct_solve_fm), one for the
+// kinematic family (KinParams: vct_solve_fm_kin) and one for the kc
+// cascade (KcParams: vct_solve_fm_kc).
 //
 // Replaces the Pallas TPU kernel build_solve_kernel_fm
 // (vehicle_control_tpu/solvers/solve_kernel_fm.py).  Per scenario: clamp U,
@@ -394,6 +395,14 @@ extern "C" int vct_solve_fm_kin(const float* params, const void* config, const f
                                  stats, B, H, stream);
 }
 
+extern "C" int vct_solve_fm_kc(const float* params, const void* config, const float* z0,
+                               const float* u0, const float* lam0, const float* curv,
+                               const float* ds, float* x, float* u, float* lam, float* kff,
+                               float* kfb, float* stats, int B, int H, void* stream) {
+  return solve_launch<KcParams>(params, config, z0, u0, lam0, curv, ds, x, u, lam, kff, kfb,
+                                stats, B, H, stream);
+}
+
 // the launch shape at B scenarios (team.cuh: team_launch_info)
 extern "C" int vct_solve_fm_info(int B, int* out) {
   return team_launch_info<STParams>(solve_fm_kernel<STParams>, B, out);
@@ -401,6 +410,10 @@ extern "C" int vct_solve_fm_info(int B, int* out) {
 
 extern "C" int vct_solve_fm_kin_info(int B, int* out) {
   return team_launch_info<KinParams>(solve_fm_kernel<KinParams>, B, out);
+}
+
+extern "C" int vct_solve_fm_kc_info(int B, int* out) {
+  return team_launch_info<KcParams>(solve_fm_kernel<KcParams>, B, out);
 }
 
 #endif

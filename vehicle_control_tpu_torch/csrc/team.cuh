@@ -20,11 +20,13 @@
 //   the Hessian's packed upper triangle (NW(NW+1)/2, as stage_derivs
 //   gives it) and the Jacobian's live block, rows 0..NX-1 (the model's
 //   fields) x columns 0..NX-1 and the two controls.  The rows of the
-//   previous controls (stash_next = u) and their columns (the stash, which
-//   no dynamics reads) are constants, rebuilt by jm().  The cascaded family
-//   (NX = 8): 170 floats, 680 bytes a stage (the full g, Hw and Jm would be
-//   276); the kinematic family (NX = 6): 113 floats.  Kernel 3's per-stage
-//   costs of the ordered sums reuse the chunk;
+//   previous controls (stash_next = u) are constants, rebuilt by jm(), and
+//   so are their columns (the stash) where no dynamics reads them: in the
+//   cascaded family (NX = 8): 170 floats, 680 bytes a stage (the full g, Hw
+//   and Jm would be 276); in the kinematic family (NX = 6): 113 floats.
+//   The kc cascade's seam reads the stash (a_final from the previous
+//   controls; ReadsStash), so its slots keep all NW columns: 186 floats.
+//   Kernel 3's per-stage costs of the ordered sums reuse the chunk;
 // - the Riccati step's scratch: Vx, Vxx (upper triangle: it is symmetric
 //   by construction), Vxx [A B], Qx and Qu, Qxx, Qux, Quu, K and Quu K:
 //   361 floats (cascaded), 250 (kinematic);
@@ -32,7 +34,8 @@
 //   (TEAM).
 // TEAM = 4, the cascaded family: 1,061 floats, 4,244 bytes a team; a block
 // of 128 threads (32 teams) takes 135,808 bytes, one block an SM.  The
-// kinematic family: 722 floats, 92,416 bytes a block.
+// kinematic family: 722 floats, 92,416 bytes a block; the kc cascade 1,125
+// floats, 144,000 bytes.
 #pragma once
 
 #include "family.cuh"
@@ -53,10 +56,12 @@ constexpr int TEAM_BLOCK = 128;  // threads per block of kernels 2 and 3
 template <class P>
 struct TeamLayout {
   static constexpr int NZ = P::NZ, NU = P::NU, NW = P::NW, NX = P::NX;
-  // the chunk's slots
-  static constexpr int JCOLS = NX + NU;  // live Jacobian columns: the model's fields, the controls
+  // the chunk's slots: the live Jacobian columns are the model's fields and
+  // the controls, and the stash where a stage's dynamics read it
+  static constexpr bool STASH = ReadsStash<P>::value;
+  static constexpr int JCOLS = STASH ? NW : NX + NU;
   static constexpr int SLOT_G = 0, SLOT_H = NW, SLOT_J = NW + P::NSYM;
-  static constexpr int SLOT = SLOT_J + NX * JCOLS;  // 170 cascaded, 113 kinematic
+  static constexpr int SLOT = SLOT_J + NX * JCOLS;  // 170 cascaded, 113 kinematic, 186 kc
   static constexpr int CHUNK = TEAM * SLOT;
   // the Riccati scratch, after the chunk
   static constexpr int VSYM = NZ * (NZ + 1) / 2;  // 55 cascaded, 36 kinematic
@@ -68,7 +73,8 @@ struct TeamLayout {
   static constexpr int TEAM_FLOATS = S_PART + TEAM;
   static constexpr int TEAM_SMEM_BYTES = TEAM_BLOCK / TEAM * TEAM_FLOATS * (int)sizeof(float);
 };
-static_assert(TeamLayout<STParams>::SLOT == 170 && TeamLayout<KinParams>::SLOT == 113,
+static_assert(TeamLayout<STParams>::SLOT == 170 && TeamLayout<KinParams>::SLOT == 113 &&
+                  TeamLayout<KcParams>::SLOT == 186,
               "a stage's slot");
 
 struct Team {
@@ -128,13 +134,15 @@ VCT_HD void unpack_n(int i, int& r, int& c) {
   c = r + i;
 }
 
-// Jm[k][c] of the stage in slot; the rows of the previous controls and
-// their columns are the constants stage_derivs sets for every kind
+// Jm[k][c] of the stage in slot; the rows of the previous controls, and
+// their columns where no dynamics reads them, are the constants
+// stage_derivs sets for every kind
 template <class P>
 VCT_HD float jm(const float* slot, int k, int c) {
   using L = TeamLayout<P>;
   constexpr int NX = P::NX;
   if (k >= NX) return c == P::NZ + (k - NX) ? 1.f : 0.f;
+  if constexpr (L::STASH) return slot[L::SLOT_J + k * L::JCOLS + c];
   if (c == NX || c == NX + 1) return 0.f;
   return slot[L::SLOT_J + k * L::JCOLS + (c < NX ? c : c - 2)];
 }
@@ -156,7 +164,10 @@ VCT_HD void derivs_to_slot(int n, int b, int B, int H, const float* X, const flo
                   slot + L::SLOT_G, slot + L::SLOT_H, Jm);
   for (int k = 0; k < NX; ++k)
     for (int c = 0; c < NW; ++c)
-      if (c != NX && c != NX + 1) slot[L::SLOT_J + k * L::JCOLS + (c < NX ? c : c - 2)] = Jm[k][c];
+      if constexpr (L::STASH)
+        slot[L::SLOT_J + k * L::JCOLS + c] = Jm[k][c];
+      else if (c != NX && c != NX + 1)
+        slot[L::SLOT_J + k * L::JCOLS + (c < NX ? c : c - 2)] = Jm[k][c];
 }
 
 // One Riccati step of stage n from its slot, with the value function (Vx,

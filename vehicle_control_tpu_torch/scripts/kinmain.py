@@ -38,7 +38,8 @@ def main(argv=None):
     if args.track:
         simconfig["track_name"] = args.track
     if simconfig.get("save_gif", False):
-        raise NotImplementedError("save_gif: the render adapters are ROADMAP queue 1, item 9")
+        raise NotImplementedError("save_gif: the render adapters are not ported "
+                                  "(ROADMAP item 'The render adapters')")
     trackconfig = load_config(
         os.path.join(root, f"configs/environment/{simconfig['track_name']}.yaml")
     )

@@ -47,10 +47,10 @@ def _controller_config_path(name: str) -> str:
 
 def _build_problem(name: str, ctrl_cfg, car_cfg, track, dtype, device):
     """The problem family from the config's shape, as the JAX simulator
-    picks it; the kinematic tail is not ported yet."""
+    picks it (``horizon_kc``: the kinematic tail, ``horizon_pm``: the point
+    mass, else the pure kinematic bicycle)."""
     if "horizon_kc" in ctrl_cfg:
-        raise NotImplementedError(
-            f"{name}: the kinematic tail (tail='kc') is ROADMAP queue 1, item 4")
+        return problems.build_cascaded_problem(car_cfg, track, ctrl_cfg, "kc", dtype, device)
     if "horizon_pm" in ctrl_cfg:
         return problems.build_cascaded_problem(car_cfg, track, ctrl_cfg, "pm", dtype, device)
     return problems.build_kinematic_problem(car_cfg, track, ctrl_cfg, dtype, device)
@@ -151,8 +151,8 @@ class RacingSimulator:
         A later call goes on from where this one stopped.
         """
         if self.config.get("save_images", False):
-            raise NotImplementedError("save_images: the render adapters are ROADMAP queue 1, "
-                                      "item 9")
+            raise NotImplementedError("save_images: the render adapters are not ported "
+                                      "(ROADMAP item 'The render adapters')")
         self._chunk = chunk
         lap_s = self.track.length - 0.1
         for entry in self.entries.values():
@@ -230,7 +230,8 @@ class RacingSimulator:
         return text
 
     def save_animation(self, *args, **kwargs):
-        raise NotImplementedError("the render adapters are ROADMAP queue 1, item 9")
+        raise NotImplementedError("the render adapters are not ported "
+                                  "(ROADMAP item 'The render adapters')")
 
     # -- persistence -------------------------------------------------------------
 
@@ -264,11 +265,12 @@ class RacingSimulator:
         in f64 on the host."""
         X = torch.from_numpy(self.pred_traj[name].astype(np.float64))  # (T, H, nz)
         e = self.entries[name]
-        if "horizon_pm" in e.config:
+        if "horizon_pm" in e.config or "horizon_kc" in e.config:
             N = int(e.config["horizon"])
-            s = torch.cat([X[:, :N, 4], X[:, N:, 1]], dim=1)
-            ey = torch.cat([X[:, :N, 5], X[:, N:, 2]], dim=1)
-            epsi = torch.cat([X[:, :N, 6], X[:, N:, 3]], dim=1)
+            i = 1 if "horizon_pm" in e.config else 2  # the tail's s: point mass 1, kinematic 2
+            s = torch.cat([X[:, :N, 4], X[:, N:, i]], dim=1)
+            ey = torch.cat([X[:, :N, 5], X[:, N:, i + 1]], dim=1)
+            epsi = torch.cat([X[:, :N, 6], X[:, N:, i + 2]], dim=1)
         else:  # the kinematic family
             s, ey, epsi = X[:, :, 2], X[:, :, 3], X[:, :, 4]
         x, y, psi = track_mod.rel2glob(self.track.data, s, ey, epsi)

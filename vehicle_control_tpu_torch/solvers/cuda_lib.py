@@ -5,7 +5,8 @@ layout and the input checks.
 Each kernel has one instantiation a family, its C entry named for it
 (``entry``): ``vct_solve_fm`` and the like for the cascaded family
 (``STParams``, ``PARAM_FIELDS``), ``vct_solve_fm_kin`` and the like for the
-kinematic family (``KinParams``, ``KIN_PARAM_FIELDS``).
+kinematic family (``KinParams``, ``KIN_PARAM_FIELDS``), ``vct_solve_fm_kc``
+and the like for the kc cascade (``KcParams``, ``KC_PARAM_FIELDS``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
 source, all started together, and linked into one shared library with a
@@ -123,6 +124,17 @@ KIN_PARAM_FIELDS = (
     "n_obs", "w_obs",
     *(f"obs{i}_{k}" for i in range(MAX_OBS) for k in ("s", "ey", "R")),
 )
+# KcParams field order (csrc/kc_cascade.cuh): the single-track stages' block,
+# then the tail's
+KC_PARAM_FIELDS = PARAM_FIELDS + (
+    # the tail's deviation, w, a-slew and switching weights
+    "w_dev_kc", "w_w_kc", "w_a", "w_Fy",
+    # state_kc_constraints, the a box (physical), the tail's u0 box (solver units)
+    "v_min", "delta_min_kc", "delta_max_kc", "ey_min_kc", "ey_max_kc", "a_min", "a_max",
+    "u0_lo_kc", "u0_hi_kc",
+    # horizon_kc: the a-slew's mask
+    "K",
+)
 
 
 def _nvcc() -> str:
@@ -198,16 +210,25 @@ def is_kinematic(family) -> bool:
     return family.tail == "kinematic"
 
 
-def kin_entry(name: str) -> str:
-    """The kinematic family's instantiation of the C entry ``name``:
-    ``name + "_kin"``, the ``_info`` entries alike (``vct_solve_fm_kin_info``)."""
-    return name[:-5] + "_kin_info" if name.endswith("_info") else name + "_kin"
+def is_kc(family) -> bool:
+    return family.tail == "kc"
+
+
+def suffixed(name: str, suffix: str) -> str:
+    """The C entry ``name`` of the instantiation with ``suffix`` ("_kin",
+    "_kc"), the ``_info`` entries alike (``vct_solve_fm_kin_info``)."""
+    return name[:-5] + suffix + "_info" if name.endswith("_info") else name + suffix
+
+
+def entry_suffix(family) -> str:
+    """The suffix of the family's instantiation: "" for the cascaded family,
+    "_kin" for the kinematic family, "_kc" for the kc cascade."""
+    return "_kin" if is_kinematic(family) else "_kc" if is_kc(family) else ""
 
 
 def entry(family, name: str) -> str:
-    """The C entry of kernel ``name`` for the family: the name itself for
-    the cascaded family, ``kin_entry(name)`` for the kinematic family."""
-    return kin_entry(name) if is_kinematic(family) else name
+    """The C entry of kernel ``name`` for the family."""
+    return suffixed(name, entry_suffix(family))
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -215,6 +236,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "vct_param_count": ([], _I),
     "vct_kin_param_count": ([], _I),
+    "vct_kc_param_count": ([], _I),
     "vct_error_string": ([_I], ctypes.c_char_p),
     # (params, alphas, A, xref, uref, kff, kfb, lam, mu, curv, ds, z0, costs, B, H, stream)
     "vct_linesearch_fm": ([_P, _P, _I] + [_P] * 10 + [_I, _I, _P], _I),
@@ -233,9 +255,10 @@ SIGNATURES = {
     "vct_linesearch_fm_info": ([_I, _I, _P], _I),
     "vct_linesearch_aos_info": ([_I, _I, _P], _I),
 }
-SIGNATURES.update({  # the kinematic family's instantiations
-    kin_entry(name): sig for name, sig in list(SIGNATURES.items())
+SIGNATURES.update({  # the kinematic family's and the kc cascade's instantiations
+    suffixed(name, suffix): sig for name, sig in list(SIGNATURES.items())
     if name.startswith(("vct_linesearch", "vct_backward", "vct_solve_fm", "vct_derivs"))
+    for suffix in ("_kin", "_kc")
 })
 
 
@@ -255,6 +278,8 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError("csrc STParams and PARAM_FIELDS disagree")
     if lib.vct_kin_param_count() != len(KIN_PARAM_FIELDS):
         raise RuntimeError("csrc KinParams and KIN_PARAM_FIELDS disagree")
+    if lib.vct_kc_param_count() != len(KC_PARAM_FIELDS):
+        raise RuntimeError("csrc KcParams and KC_PARAM_FIELDS disagree")
     if lib.vct_solve_config_size() != ctypes.sizeof(SolveConfig):
         raise RuntimeError("csrc SolveConfig and cuda_lib.SolveConfig disagree")
     return lib
@@ -269,7 +294,8 @@ LEADS = {"vct_solve_fm_info": "team", "vct_backward_fm_info": "team",
          "vct_derivs_fm_info": "threads_per_stage",
          "vct_linesearch_fm_info": "scenarios_per_block",
          "vct_linesearch_aos_info": "scenarios_per_block"}
-LEADS.update({kin_entry(k): v for k, v in list(LEADS.items())})
+LEADS.update({suffixed(k, suffix): v for k, v in list(LEADS.items())
+              for suffix in ("_kin", "_kc")})
 
 
 def launch_info(fn, *shape) -> dict:
@@ -324,8 +350,9 @@ def kin_family_params(family) -> np.ndarray:
 
 def family_params(family) -> np.ndarray:
     """The family's parameter block (f32): the car parameters, weights,
-    bounds and obstacle table in STParams order, or KinParams order for the
-    kinematic family.  A family with more than MAX_OBS discs raises."""
+    bounds and obstacle table in STParams order, KinParams order for the
+    kinematic family, KcParams order (STParams', then the tail's) for the kc
+    cascade.  A family with more than MAX_OBS discs raises."""
     if is_kinematic(family):
         return kin_family_params(family)
     p, w = family.params, family.weights
@@ -350,12 +377,22 @@ def family_params(family) -> np.ndarray:
         w_dev_pm=w.get("deviation_pm", 0.0) if pm else 0.0,
         w_Fy=w.get("Fy", 0.0) if pm else 0.0,
         w_switch_F=w.get("switch_F", 0.0) if pm else 0.0,
-        V_min=ct.get("V_min", 0.0), ey_min_pm=ct.get("ey_min", 0.0),
-        ey_max_pm=ct.get("ey_max", 0.0), N=family.N, pm=1.0 if pm else 0.0,
+        V_min=ct.get("V_min", 0.0) if pm else 0.0, ey_min_pm=ct.get("ey_min", 0.0) if pm else 0.0,
+        ey_max_pm=ct.get("ey_max", 0.0) if pm else 0.0, N=family.N, pm=1.0 if pm else 0.0,
     )
     vals["u1_lo_pm"], vals["u1_hi_pm"] = family.u_box(family.H - 1, 1)
     vals.update(_obstacle_table(family, w))
-    return np.asarray([vals[k] for k in PARAM_FIELDS], np.float32)
+    if not is_kc(family):
+        return np.asarray([vals[k] for k in PARAM_FIELDS], np.float32)
+    vals["u1_lo_pm"] = vals["u1_hi_pm"] = 0.0  # no point-mass stage
+    vals.update(
+        w_dev_kc=w["deviation_kc"], w_w_kc=w["w_kc"], w_a=w["a"], w_Fy=w["Fy"],
+        v_min=ct["v_min"], delta_min_kc=ct["delta_min"], delta_max_kc=ct["delta_max"],
+        ey_min_kc=ct["ey_min"], ey_max_kc=ct["ey_max"], a_min=ci["a_min"], a_max=ci["a_max"],
+        K=family.H - family.N,
+    )
+    vals["u0_lo_kc"], vals["u0_hi_kc"] = family.u_box(family.H - 1, 0)
+    return np.asarray([vals[k] for k in KC_PARAM_FIELDS], np.float32)
 
 
 def soa(t: torch.Tensor) -> torch.Tensor:

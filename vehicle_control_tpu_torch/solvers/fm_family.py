@@ -2,28 +2,42 @@
 
 A family is the one source of the AL stage cost, the dynamics and the
 control boxes that the solver, the kernels' plain versions and the CUDA
-kernels (``csrc/singletrack.cuh``) compute.  Fields are per-scenario
-tensors; the stage index ``n`` is a Python int, so every stage-switched
-branch resolves when the closure runs.
+kernels (``csrc/singletrack.cuh``, ``csrc/kc_cascade.cuh``) compute.  Fields
+are per-scenario tensors; the stage index ``n`` is a Python int, so every
+stage-switched branch resolves when the closure runs.
 
-Two families are ported: ``tail="none"``, the single-track family
-(``configs/controllers/singletrack.yaml``, H = N stages), and
-``tail="pm"``, the paper's cascade (``configs/controllers/cascaded.yaml``):
-N single-track stages, then M point-mass stages, H = N + M.  The solver
-state is one padded z = [x(8), u_prev(2)] whose fields change meaning at
-the seam: stages n < N carry the single-track state (Ux, Uy, r, delta, s,
-ey, epsi, t) and the RK4 step; stage N-1 hands off to the point mass
-(``fm_singletrack.seam_fields``) and stashes the total lateral force in
-z[5]; stages n >= N carry (V, s, ey, epsi, t) and an explicit Euler step.
-Control 1 is the steer rate w before N and the lateral force Fy in kN from
-N on.  With ``cfg["obstacles"]`` the track's discs add a barrier cost,
-sum_i w dsn / max(dist_i - (r_i + 0.1), OBSTACLE_EPS) over the (s, ey)
-distance to each disc's centre, to every stage: on (z[4], z[5]) at the
-single-track stages (the seam's included), on (z[1], z[2]) at the
-point-mass stages.  It is a cost term, not a constraint row.  The kinematic
-tail comes later.  ``build_kinematic_family`` is the pure kinematic bicycle
-(``configs/controllers/kinematic.yaml``): its own state, its explicit Euler
-step and closed-form stage derivatives (see its docstring).
+``build_cascaded_family`` has three tails.  ``tail="none"`` is the
+single-track family (``configs/controllers/singletrack.yaml``, H = N
+stages).  ``tail="pm"`` is the paper's cascade
+(``configs/controllers/cascaded.yaml``): N single-track stages, then M
+point-mass stages, H = N + M.  The solver state is one padded z = [x(8),
+u_prev(2)] whose fields change meaning at the seam: stages n < N carry the
+single-track state (Ux, Uy, r, delta, s, ey, epsi, t) and the RK4 step;
+stage N-1 hands off to the point mass (``fm_singletrack.seam_fields``) and
+stashes the total lateral force in z[5]; stages n >= N carry (V, s, ey,
+epsi, t) and an explicit Euler step.  Control 1 is the steer rate w before
+N and the lateral force Fy in kN from N on.  With ``cfg["obstacles"]`` the
+track's discs add a barrier cost, sum_i w dsn / max(dist_i - (r_i + 0.1),
+OBSTACLE_EPS) over the (s, ey) distance to each disc's centre, to every
+stage: on (z[4], z[5]) at the single-track stages (the seam's included), on
+(z[1], z[2]) at the point-mass stages.  It is a cost term, not a
+constraint row.
+
+``tail="kc"`` is the single-track + kinematic-bicycle cascade
+(``configs/controllers/cascaded_kinematic.yaml``): N single-track stages,
+then K = ``horizon_kc`` kinematic stages, H = N + K.  The seam N-1 maps the
+single-track state to (v, delta, s, ey, epsi, t) = (V, delta, s, ey, beta +
+epsi, t) and stashes in z[6] and z[7] the acceleration magnitude a_final
+that the previous controls give (``kc_seam_fields``) and the previous steer
+rate; the switching cost at N holds the tail's first (a, w) against them.
+The tail stages carry the kinematic bicycle's regularized Euler step
+(``kc_prime`` at floor 0.3, beta 10, v in [0.5, 1e3]) with the steering
+stop at the tail's delta bounds; control 0 is the acceleration a in
+units of FORCE_SCALE, control 1 the steer rate w throughout.  Its obstacle
+barrier (the JAX package's ``_obstacles_kc``) is not ported: the kc tail
+with obstacles raises.  ``build_kinematic_family`` is the pure kinematic
+bicycle (``configs/controllers/kinematic.yaml``): its own state, its
+explicit Euler step and closed-form stage derivatives (see its docstring).
 
 ``stage_derivs`` is the hand-derived twin of the JAX package's restructured
 exact derivatives, with no autograd in it:
@@ -40,12 +54,20 @@ exact derivatives, with no autograd in it:
   the cost and constraints are a single-track stage's, so the gradient and
   Hessian are too; the Jacobian comes from first-order jets through the
   seam map over (Ux, Uy, r, delta, u_Fx), plus the unit columns of s, ey,
-  epsi and t;
+  epsi and t.  The kc seam reads the previous controls instead of u: its
+  jets run over (Ux, Uy, r, delta, z[8]) through the temporal ODE, a_final's
+  partials are chained by hand, and the w stash's column z[9] is a unit
+  column;
 * point-mass stages n >= N (JAX ``_tail_fast``): the Jacobian from
   first-order jets through the Euler step over (V, ey, epsi, u_Fx, u_Fy),
   plus the unit columns of s and t; the Hessian in closed form (boundary,
   deviation, the V floor, the engine-power row, the Fx/Fy slew, the
-  switching cost at n = N and the terminal cost).
+  switching cost at n = N and the terminal cost);
+* kinematic tail stages n >= N (JAX ``_tail_fast``): the Jacobian from
+  ``kc_prime_jacobian`` at the tail's regularization through the steering
+  stop, the s and t columns unit columns, the stash rows stash_next = u; the
+  Hessian in closed form (boundary, deviation, w, the box rows, the a-slew,
+  the switching cost at n = N and the terminal cost).
 
 With obstacles, the barrier's gradient comes with the rest of the gradient's
 jets, and its 2x2 (s, ey) Hessian block from second-order jets over (s, ey)
@@ -63,7 +85,7 @@ from vehicle_control_tpu_torch.models import dynamic_car as dc
 from vehicle_control_tpu_torch.solvers import fm_singletrack as fm
 from vehicle_control_tpu_torch.utils import jet as J
 from vehicle_control_tpu_torch.utils.jet import Jet
-from vehicle_control_tpu_torch.utils.math import tan
+from vehicle_control_tpu_torch.utils.math import arctan, safe_div, tan
 
 FORCE_SCALE = fm.FORCE_SCALE
 NONQUAD_ROWS = (3, 6, 7, 8, 9)  # constraint rows in the nonquadratic block
@@ -74,6 +96,12 @@ PM_COLS = (0, 2, 3, 10, 11)  # what the point-mass Euler step reads: V, ey, epsi
 PM_CLAMPS = {0: (0.5, 1e3), 2: (-8.0, 8.0), 3: (-1.3, 1.3)}
 TAIL_BOX = (-25.0, 25.0)  # Fy box in kN on the point-mass stages
 OBSTACLE_EPS = 1e-2  # the floor of the obstacle barrier's denominator
+# the kc tail's regularization (problems.build_cascaded_problem's kc tail):
+# the clamps v in [0.5, 1e3], |delta| <= 1, |ey| <= 8, |epsi| <= 1.2, the
+# floor 0.3 and beta 10 of the single-track stages
+KC_TAIL_CLAMPS = {0: (0.5, 1e3), 1: (-1.0, 1.0), 3: (-8.0, 8.0), 4: (-1.2, 1.2)}
+KC_TAIL_FLOOR, KC_TAIL_BETA = 0.3, 10.0
+KC_SEAM_COLS = (0, 1, 2, 3, 8)  # what a_final reads: Ux, Uy, r, delta, the Fx stash
 
 
 class FMFamily(NamedTuple):
@@ -104,7 +132,7 @@ class FMFamily(NamedTuple):
     weights: dict
     input_constraints: dict
     state_constraints: dict
-    tail_constraints: dict | None  # state_pm_constraints for tail="pm"
+    tail_constraints: dict | None  # state_pm_constraints ("pm"), state_kc_constraints ("kc")
     obstacles: tuple  # the barrier's discs, (s, ey, r) each; () without obstacles
 
 
@@ -160,21 +188,48 @@ def _obstacles_std(rows, s, ey, dsn, w_obs):
     return acc
 
 
+def _norm2(a, b):
+    """sqrt(a^2 + b^2); on jets the partials chained by hand, (a a' + b b') /
+    sqrt(a^2 + b^2), and 0 where the norm is 0 (the subgradient of a norm at
+    its kink: JAX's autodiff of jnp.sqrt there gives inf x 0 = NaN)."""
+    if not isinstance(a, Jet) and not isinstance(b, Jet):
+        return torch.sqrt(a**2 + b**2)
+    av, bv = J.val(a), J.val(b)
+    r = torch.sqrt(av**2 + bv**2)
+    live = r > 0.0
+    inv = torch.where(live, 1.0 / torch.where(live, r, 1.0), 0.0)
+    d = J._parts(a)[0] * (av * inv).unsqueeze(-1) + J._parts(b)[0] * (bv * inv).unsqueeze(-1)
+    return Jet(r, d)
+
+
+def kc_seam_fields(x, Fx_prev, w_prev, p):
+    """The handoff from the single-track state to the kinematic tail at stage
+    N-1 (problems.build_cascaded_problem's kc seam): v = V, delta, s, ey, the
+    heading beta + epsi, t, then the stashes the switching cost reads: the
+    acceleration magnitude a_final = |(Ux', Uy')| of the temporal ODE at the
+    raw state under the previous controls (Fx_prev in N, w_prev), and w_prev."""
+    Ux, Uy, r, delta, s, ey, epsi, t = x
+    V = J.sqrt(Ux**2 + Uy**2)
+    beta = arctan(safe_div(Uy, Ux))
+    xdot = fm.temporal_fields(x, Fx_prev, w_prev, 0.0, p)
+    return [V, delta, s, ey, beta + epsi, t, _norm2(xdot[0], xdot[1]), w_prev]
+
+
 def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) -> FMFamily:
-    """Field-wise twin of problems.build_cascaded_problem (tail "none" or
-    "pm"); with ``cfg["obstacles"]`` the barrier over the discs of
-    ``track_data`` (a TrackData)."""
+    """Field-wise twin of problems.build_cascaded_problem (tail "none", "pm"
+    or "kc"); with ``cfg["obstacles"]`` the barrier over the discs of
+    ``track_data`` (a TrackData).  The kc tail with obstacles raises."""
+    if tail not in ("none", "pm", "kc"):
+        raise ValueError(f"tail={tail!r}: 'none', 'pm' or 'kc'")
     N = int(cfg["horizon"])
-    M = int(cfg["horizon_pm"]) if tail == "pm" else 0
-    if tail not in ("none", "pm"):
-        raise NotImplementedError(
-            "the torch port covers the single-track family and the point-mass "
-            "cascade (tail='none', 'pm'); the kinematic tail (tail='kc') is the "
-            "next slice of the port"
-        )
+    M = int(cfg["horizon_pm"]) if tail == "pm" else int(cfg["horizon_kc"]) if tail == "kc" else 0
     if M == 0:
         tail = "none"
-    pm = tail == "pm"
+    pm, kc = tail == "pm", tail == "kc"
+    if kc and bool(cfg.get("obstacles", False)):
+        raise NotImplementedError(
+            "the kc tail with obstacles (its own barrier, the JAX package's "
+            "fm_family._obstacles_kc) is not ported: ROADMAP item 'The kc tail with obstacles'")
     p = dc.DynamicCarParams.from_config(car_config)
     H = N + M
     NZ, NU, NC = 10, 2, 10
@@ -182,20 +237,33 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
     w = {k: float(v) for k, v in cfg["cost_weights"].items()}
     ci = {k: float(v) for k, v in cfg["input_constraints"].items()}
     cs = {k: float(v) for k, v in cfg["state_constraints"].items()}
-    ct = {k: float(v) for k, v in cfg["state_pm_constraints"].items()} if pm else None
+    ct = None
+    if pm:
+        ct = {k: float(v) for k, v in cfg["state_pm_constraints"].items()}
+    elif kc:
+        ct = {k: float(v) for k, v in cfg["state_kc_constraints"].items()}
+        l_kc = float(car_config["car"]["l"])
+        K = int(cfg["horizon_kc"])
+        a_box = (ci["a_min"] / FORCE_SCALE, ci["a_max"] / FORCE_SCALE)  # a in units of FS
     rows = _obstacle_rows(track_data, bool(cfg.get("obstacles", False)))
     w_obs = w.get("obstacles", 0.0)
     FS = FORCE_SCALE
     fs = 1.0 / FS
 
     def split(n, wf):
-        """(z, Fx, u1, Fx_prev, u1_prev) in physical units: u1 is w before N
-        and Fy (kN in the solver) from N on; the previous u1 is in kN from
-        N+1 on."""
+        """(z, Fx, u1, Fx_prev, u1_prev) in physical units: on the point-mass
+        tail u1 is w before N and Fy (kN in the solver) from N on, the
+        previous u1 in kN from N+1 on; on the kc tail Fx is the acceleration
+        a from N on and u1 is w throughout."""
         z, u = wf[:NZ], wf[NZ:]
         u1 = u[1] * FS if pm and n >= N else u[1]
         u1_prev = z[9] * FS if pm and n >= N + 1 else z[9]
         return z, u[0] * FS, u1, z[8] * FS, u1_prev
+
+    def a_slew_on(n):
+        # JAX's traced mask as written: the reference's k < K - 1 on the
+        # global stage index, so live only where K >= N + 2
+        return n >= N + 1 and n - 1 < K - 1
 
     def stage_cost(n, wf, kv, ds_read):
         z, Fx, u1, Fx_prev, u1_prev = split(n, wf)
@@ -206,6 +274,17 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
             )
             if rows:
                 cost = cost + _obstacles_std(rows, z[4], z[5], dsn, w_obs)
+        elif kc:
+            ey = z[3]
+            cost = fm.boundary_fields(ey, dsn, w["boundary"], ct["ey_min"], ct["ey_max"])
+            cost = cost + w["deviation_kc"] * dsn * ey**2
+            cost = cost + w["w_kc"] * u1**2
+            if a_slew_on(n):  # the a-slew against the previous action (no ds factor)
+                cost = cost + w["a"] * (Fx - Fx_prev) ** 2
+            if n == N:  # switching cost against the seam's stashed a_final and w_prev
+                cost = cost + (w["Fy"] / ds_read(min(N, H - 1))) * (
+                    (z[6] - Fx) ** 2 + (z[7] - u1) ** 2
+                )
         else:
             ey = z[2]
             cost = fm.boundary_fields(ey, dsn, w["boundary"], ct["ey_min"], ct["ey_max"])
@@ -222,12 +301,19 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
         if n == H - 1:
             if pm:
                 cost = cost + fm.term_cost_fields(z[0], z[2], z[3], z[4], w, cs)
+            elif kc:
+                cost = cost + fm.term_cost_fields(z[0], z[3], z[4], z[5], w, cs)
             else:
                 cost = cost + fm.term_cost_fields(z[0], z[5], z[6], z[7], w, cs)
         return cost
 
     def constraints(n, wf):
         z, Fx, u1, _, _ = split(n, wf)
+        if n >= N and kc:  # kinematic tail: v floor, steering box, a and w boxes, padding
+            v, delta = z[0], z[1]
+            return [ct["v_min"] - v, delta - ct["delta_max"], ct["delta_min"] - delta,
+                    Fx - ci["a_max"], ci["a_min"] - Fx, u1 - ci["w_max"],
+                    ci["w_min"] - u1] + [-1.0] * 3
         if n >= N:  # point mass: speed floor, engine power, padding
             V = z[0]
             return [ct["V_min"] - V, (Fx - p.Peng / J.maximum(V, 1.0)) * fs] + [-1.0] * 8
@@ -243,24 +329,37 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
             constraints(n, wf), lam_read, mu
         )
 
+    def kc_tail_step(x6, a, w_act, kv, h):
+        """The kinematic tail's Euler step with the steering stop."""
+        prime = kc_prime(x6, a, w_act, kv, l_kc, KC_TAIL_FLOOR, KC_TAIL_BETA, KC_TAIL_CLAMPS)
+        nxt = [x + h * q for x, q in zip(x6, prime)]
+        nxt[1] = J.clip(nxt[1], ct["delta_min"], ct["delta_max"])
+        return nxt
+
     def dyn(n, wf, kv, ds_read):
-        z, Fx, u1, _, _ = split(n, wf)
+        z, Fx, u1, Fx_prev, u1_prev = split(n, wf)
         dsn = ds_read(n)
-        if n < N - 1 or not pm:
+        if n < N - 1 or tail == "none":
             nxt = fm.rk4_step(z[:8], Fx, u1, kv, dsn, p)
             # steering stop on the integrated delta (problems._sat_col)
             nxt[3] = J.clip(nxt[3], cs["delta_min"], cs["delta_max"])
-        elif n == N - 1:
+        elif n == N - 1 and pm:
             seam = fm.seam_fields(z[:8], Fx, p)
             nxt = seam + [torch.zeros_like(J.val(seam[0]))] * 2
-        else:
+        elif n == N - 1:  # kc: the previous controls give a_final
+            nxt = kc_seam_fields(z[:8], Fx_prev, u1_prev, p)
+            nxt[7] = nxt[7] + torch.zeros_like(J.val(nxt[0]))
+        elif pm:
             nxt = pm_step(z[:5], Fx, u1, kv, dsn, p)
             nxt = nxt + [torch.zeros_like(J.val(nxt[0]))] * 3
+        else:
+            nxt = kc_tail_step(z[:6], Fx, u1, kv, dsn)
+            nxt = nxt + [torch.zeros_like(J.val(nxt[0]))] * 2
         return tuple(nxt) + (wf[NZ], wf[NZ + 1])
 
     def u_box(n, j):
         if j == 0:
-            return -30.0, 60.0  # Fx in kN (brake, drive)
+            return a_box if kc and n >= N else (-30.0, 60.0)  # Fx in kN (brake, drive); a
         if pm and n >= N:
             return TAIL_BOX
         return ci["w_min"], ci["w_max"]
@@ -377,6 +476,68 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
         _obstacle_block(Hw, 1, 2, wf[1], wf[2], dsn)
         return Hw
 
+    def _kc_tail_hessian(n, wf, lam, mu, dsn, ds_switch, zero):
+        """Hessian of a kinematic tail stage's AL cost (stages n >= N), closed
+        form: every term is linear, quadratic or a hinge in the fields."""
+        c_all = constraints(n, wf)
+
+        def act(j):
+            return _active(lam[j] + mu * c_all[j], zero.dtype)
+
+        Hw = zero.new_zeros(zero.shape + (NW, NW))
+        v, ey = wf[0], wf[3]
+        blo = (ey < ct["ey_min"]).to(zero.dtype)
+        bhi = (ey > ct["ey_max"]).to(zero.dtype)
+        Hw[..., 3, 3] = 2.0 * w["boundary"] * dsn * (blo + bhi) + 2.0 * w["deviation_kc"] * dsn
+        Hw[..., NZ + 1, NZ + 1] = 2.0 * w["w_kc"] + mu * (act(5) + act(6)) + zero
+        # the box rows: 0 the v floor, 1-2 the steering box, 3-4 a (d c / du_a = FS)
+        Hw[..., 0, 0] += mu * act(0)
+        Hw[..., 1, 1] += mu * (act(1) + act(2))
+        Hw[..., NZ, NZ] += mu * (act(3) + act(4)) * (FS * FS)
+        if a_slew_on(n):
+            coef = (2.0 * w["a"]) * (FS * FS)
+            Hw[..., 8, 8] += coef
+            Hw[..., 8, NZ] -= coef
+            Hw[..., NZ, 8] -= coef
+            Hw[..., NZ, NZ] += coef
+        if n == N:  # switching cost: a against z[6] (a_final), w against z[7]
+            cw = 2.0 * w["Fy"] / ds_switch
+            Hw[..., 6, 6] += cw
+            Hw[..., 6, NZ] -= cw * FS
+            Hw[..., NZ, 6] -= cw * FS
+            Hw[..., NZ, NZ] += cw * (FS * FS)
+            Hw[..., 7, 7] += cw
+            Hw[..., 7, NZ + 1] -= cw
+            Hw[..., NZ + 1, 7] -= cw
+            Hw[..., NZ + 1, NZ + 1] += cw
+        if n == H - 1:  # terminal cost on the kinematic fields
+            Hw[..., 0, 0] += (2.0 * w["speed"]) * (v >= cs["max_speed"]).to(zero.dtype)
+            Hw[..., 3, 3] += 2.0 * w["ey"]
+            Hw[..., 4, 4] += 2.0 * w["epsi"]
+        return Hw
+
+    def _kc_tail_jacobian(wf, kv, h, zero):
+        """The kinematic tail's Euler-step Jacobian (..., NZ, NW):
+        ``kc_prime_jacobian`` at the tail's regularization, row 1 through the
+        steering stop, a = u_a FS; s and t pass through (unit columns), the
+        stash rows stash_next = u, rows 6 and 7 (zeroed) none."""
+        Jm = zero.new_zeros(zero.shape + (NZ, NW))
+        for i in range(6):
+            Jm[..., i, i] = 1.0
+        Jm[..., 8, NZ] = 1.0
+        Jm[..., 9, NZ + 1] = 1.0
+        prime, D = kc_prime_jacobian(list(wf[:6]), wf[NZ] * FS, wf[NZ + 1], kv, l_kc,
+                                     KC_TAIL_FLOOR, KC_TAIL_BETA, KC_TAIL_CLAMPS)
+        cols = {c: c for c in KC_PRIME_COLS}
+        cols.update(a=NZ, w=NZ + 1)
+        for (r, c), dv in D.items():
+            Jm[..., r, cols[c]] += h * dv * (FS if c == "a" else 1.0)
+        nxt1 = wf[1] + h * prime[1]
+        stop = J._tie_weight(nxt1, ct["delta_min"]) * J._tie_weight(
+            ct["delta_max"], J._vmax(nxt1, ct["delta_min"]))
+        Jm[..., 1, :] *= stop.unsqueeze(-1) + 0.0 * zero.unsqueeze(-1)
+        return Jm
+
     def stage_derivs(n, wf, lam, mu, kv, ds_read):
         ref = wf[0]
         for f in tuple(wf[1:]) + (kv, mu):
@@ -389,6 +550,10 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
         L = al_cost(n, Jet.seed(list(wf)), lambda j: lam[j], mu, kv, ds_read)
         g = L.d + zero.unsqueeze(-1)
         stash = ((8, NZ), (9, NZ + 1))  # stash_next = u
+
+        if n >= N and kc:  # kinematic tail: the Euler step's closed-form Jacobian
+            Jm = _kc_tail_jacobian(wf, kv, dsn, zero)
+            return g, _kc_tail_hessian(n, wf, lam, mu, dsn, ds_read(min(N, H - 1)), zero), Jm
 
         if n >= N:  # point mass: jets through the Euler step
             seeds = Jet.seed([wf[i] for i in PM_COLS])
@@ -404,6 +569,15 @@ def build_cascaded_family(car_config, cfg, tail: str = "none", track_data=None) 
             # s, ey and t pass through; epsi adds to beta
             Jm = _jac({i: c for c, i in enumerate(VIDX)}, seam,
                       ((1, 4), (2, 5), (3, 6), (4, 7)) + stash, zero)
+        elif n == N - 1 and kc:
+            # the kc seam reads the stash, not u: jets over (Ux, Uy, r, delta,
+            # z[8]) through the temporal ODE give a_final's partials; s, ey
+            # and t pass through, epsi adds to beta, w_prev = z[9] is the
+            # next w stash
+            seeds = Jet.seed([wf[i] for i in KC_SEAM_COLS])
+            seam = kc_seam_fields(list(seeds[:4]) + list(wf[4:8]), seeds[4] * FS, wf[9], p)
+            Jm = _jac({i: c for c, i in enumerate(KC_SEAM_COLS)}, seam,
+                      ((2, 4), (3, 5), (4, 6), (5, 7), (7, 9)) + stash, zero)
         else:  # single track: jets over (Ux, Uy, r, delta, ey, epsi, u_Fx, w)
             seeds = Jet.seed([wf[i] for i in fm.RK4_COLS] + [wf[NZ], wf[NZ + 1]])
             x8 = list(wf[:8])
